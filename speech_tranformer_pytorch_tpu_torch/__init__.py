@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of the Speech-Transformer ASR system.
+
+The JAX package ``speech_tranformer_pytorch_tpu`` beside this one is the
+reference; this package imports nothing of it (nor JAX). Module names
+mirror the JAX package's so each counterpart is easy to find. Entry points
+(``recognize.Recognizer``, ``decoding.beam_decode``,
+``data.features.extract_features``) run on CUDA unless the caller passes
+``device="cpu"``; the three hand-written Hopper kernels live under
+``csrc/`` and are dispatched by ``kernels/interface.py``.
+"""
+
+from . import config
+from .config import ExperimentConfig, get_config
+
+__version__ = "0.1.0"
