@@ -1,21 +1,31 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card and hold its kernels to account.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases name,name,...]
 
 Phases (any failure exits non-zero before the final line):
   1. the card's name and power limit, as nvidia-smi prints them;
   2. build the CUDA kernels from ``speech_tranformer_pytorch_tpu_torch/csrc``
      and check each against its plain PyTorch version on the card, at the
-     main path's shapes, with timings (CUDA events) and the roofline bound;
-  3. the main path: ``Recognizer.decode_batch`` at the ``base`` preset (full
-     width, bf16, seeded random weights) serving 8 int16 utterances of 4-6 s
-     with beam 5 and max_len 100, with the kernels' launch counts;
+     main paths' shapes, with timings (CUDA events) and the roofline bound:
+     fbank, beam prune, lineage attention, flash attention forward, dK/dV
+     and dQ (``check_flash``) and the fused Adam (``check_adam``);
+  3. the serving main path: ``Recognizer.decode_batch`` at the ``base``
+     preset (full width, bf16, seeded random weights) serving 8 int16
+     utterances of 4-6 s with beam 5 and max_len 100, with the kernels'
+     launch counts;
   4. the same path in float32 on 2 utterances, on the card with the kernels
      and on the CPU with the plain versions: hypotheses must be identical
      and the first step's logits within 1e-3;
-  5. one JSON line per kernel set, then ``{"ok": true, "device": ...}``.
-Imports nothing of JAX or of the JAX package.
+  5. the train main path (``train_path``): 3 + 10 steps of the ``base``
+     preset (full width and depth, bf16 over f32 masters, dropout 0.1) on
+     64 int16 utterances, with exact per-step launch counts;
+  6. one float32 train step on 2 utterances, card against CPU
+     (``train_card_vs_cpu``), and the overfit anchor: 300 steps of a small
+     model on 10 synthetic utterances, then exact beam decoding;
+  7. one JSON line per kernel set, then ``{"ok": true, "device": ...}``.
+``--phases`` runs a subset (the kernel checks need no main path); with no
+arguments every phase runs. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import time
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12     # f32 outside the tensor cores, same sheet
+H100_BF16_FLOP_PER_S = 989e12   # dense bf16 tensor cores, same sheet
 PKG = "speech_tranformer_pytorch_tpu_torch"
 
 
@@ -37,9 +48,9 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = H100_F32_FLOP_PER_S):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -225,6 +236,415 @@ def check_lineage(torch, dev):
     return rec
 
 
+# Flash attention: the train path's three shapes (B 64, H 8, D 64; encoder
+# T' 99-149, targets 11-31 of U 32), plus a zero-length row and ragged
+# tiles. Tolerances: f32 as the JAX goldens (tests/test_flash_attention.py:
+# 2e-3 forward, 5e-3 gradients); bf16 2e-2 of each tensor's largest value
+# plus 2e-2 relative, because the bf16 kernels round p (forward and
+# backward) and dS to bf16 before their tensor-core products, at other
+# points of the online softmax than the plain version, and round every
+# output to bf16 (a relative step of 2^-8).
+FLASH_TOL = {"float32": ((2e-3, 2e-3), (5e-3, 5e-3)),
+             "bfloat16": ((2e-2, 2e-2), (2e-2, 2e-2))}
+
+
+def _flash_cases(torch):
+    g = torch.Generator().manual_seed(3)
+    b = 64
+    enc = torch.randint(99, 150, (b,), generator=g, dtype=torch.int32)
+    dec = torch.randint(11, 32, (b,), generator=g, dtype=torch.int32)
+    enc[0], dec[0] = 149, 32                    # the padded widths are reached
+    odd = torch.tensor([0, 77, 5], dtype=torch.int32)
+    # name, batch, Tq, Tk, kv_lengths, causal, q/k/v from one fused projection
+    return [("encoder_self", b, 149, 149, enc, False, True),
+            ("decoder_self", b, 32, 32, dec, True, True),
+            ("cross", b, 32, 149, enc, False, False),
+            ("zero_len_ragged", 3, 70, 77, odd, False, False),
+            ("zero_len_causal", 3, 77, 77, odd, True, True)]
+
+
+def _flash_inputs(torch, dev, dtype, b, tq, tk, fused, h=8, d=64):
+    """[B, H, T, D] views of [B, T, H, D] storage (of one [B, T, 3, H, D]
+    projection when ``fused``), as the model hands them over."""
+    g = torch.Generator(device=dev).manual_seed(b * 1000 + tq * 10 + tk)
+    rnd = lambda *s: torch.randn(*s, device=dev, generator=g).to(dtype)
+    if fused:
+        q, k, v = rnd(b, tq, 3, h, d).unbind(2)
+    else:
+        q, k, v = rnd(b, tq, h, d), rnd(b, tk, h, d), rnd(b, tk, h, d)
+    do = rnd(b, tq, h, d)
+    return [x.transpose(1, 2) for x in (q, k, v, do)]
+
+
+def _pairs(tq, kv_lengths, causal):
+    """Kept (query, key) pairs per head: every query row, keys below the
+    length (and on or below the diagonal when causal)."""
+    if not causal:
+        return tq * int(kv_lengths.sum())
+    return sum(sum(min(t + 1, int(n)) for t in range(tq)) for n in kv_lengths)
+
+
+def check_flash(torch, dev):
+    from speech_tranformer_pytorch_tpu_torch.kernels import flash_attention as fa
+    from torch.nn import functional as F
+
+    per_shape = {}
+    for name, b, tq, tk, lens_cpu, causal, fused in _flash_cases(torch):
+        lens = lens_cpu.to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype)[6:]
+            (fa_tol, fr_tol), (ga_tol, gr_tol) = FLASH_TOL[dname]
+            q, k, v, do = _flash_inputs(torch, dev, dtype, b, tq, tk, fused)
+            o, lse = fa.flash_fwd_cuda(q, k, v, lens, causal=causal)
+            o_r, lse_r = fa.flash_fwd_reference(q, k, v, lens, causal=causal)
+            di = (o_r.float() * do.float()).sum(-1)
+            dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse_r, di, lens, causal=causal)
+            dk_r, dv_r = fa.flash_bwd_dkv_reference(q, k, v, do, lse_r, di, lens,
+                                                    causal=causal)
+            dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse_r, di, lens, causal=causal)
+            dq_r = fa.flash_bwd_dq_reference(q, k, v, do, lse_r, di, lens, causal=causal)
+            torch.cuda.synchronize()
+            tag = f"flash[{name},{dname}]"
+            if o.dtype != dtype or dq.dtype != dtype or dk.dtype != dtype:
+                raise AssertionError(f"{tag}: outputs not in the input dtype")
+            for t in (o, lse, dq, dk, dv):
+                if not bool(torch.isfinite(t).all()):
+                    raise AssertionError(f"{tag}: non-finite output")
+            zero = lens_cpu == 0
+            if bool(zero.any()) and bool(o[zero.to(dev)].abs().max() != 0):
+                raise AssertionError(f"{tag}: a zero-length row is not 0")
+            errs = {"o": check_close(f"{tag}.o", o, o_r, fa_tol, fr_tol),
+                    "lse": check_close(f"{tag}.lse", lse, lse_r, 1e-4, 1e-5)}
+            for gname, got, want in (("dq", dq, dq_r), ("dk", dk, dk_r), ("dv", dv, dv_r)):
+                scale = float(want.float().abs().max()) or 1.0
+                errs[gname] = check_close(f"{tag}.{gname}", got, want,
+                                          ga_tol * (scale if dname == "bfloat16" else 1.0),
+                                          gr_tol)
+            emit({"check": {"name": tag, "max_abs_err": errs}})
+            if dtype != torch.bfloat16 or name.startswith("zero"):
+                continue
+            # Timed at the train path's dtype and shapes.
+            keep = fa._keep_mask(tq, tk, lens, causal)
+            esz = q.element_size()
+            pairs = 8 * _pairs(tq, lens_cpu, causal)
+            io_q = b * 8 * tq * 64 * esz          # one [B, H, Tq, D] tensor
+            io_k = b * 8 * tk * 64 * esz
+            stat = b * 8 * tq * 4                 # one f32 [B, H, Tq] tensor
+            qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=keep)
+            rec = {
+                "flash_fwd": dict(
+                    ms=device_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, lens, causal=causal)),
+                    plain_ms=device_ms(torch, lambda: fa.flash_fwd_reference(
+                        q, k, v, lens, causal=causal)),
+                    library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=keep)),
+                    nbytes=2 * io_q + 2 * io_k + stat, flops=4 * 64 * pairs),
+                "flash_bwd_dkv": dict(
+                    ms=device_ms(torch, lambda: fa.flash_bwd_dkv_cuda(
+                        q, k, v, do, lse_r, di, lens, causal=causal)),
+                    plain_ms=device_ms(torch, lambda: fa.flash_bwd_dkv_reference(
+                        q, k, v, do, lse_r, di, lens, causal=causal)),
+                    nbytes=2 * io_q + 4 * io_k + 2 * stat, flops=8 * 64 * pairs),
+                "flash_bwd_dq": dict(
+                    ms=device_ms(torch, lambda: fa.flash_bwd_dq_cuda(
+                        q, k, v, do, lse_r, di, lens, causal=causal)),
+                    plain_ms=device_ms(torch, lambda: fa.flash_bwd_dq_reference(
+                        q, k, v, do, lse_r, di, lens, causal=causal)),
+                    nbytes=3 * io_q + 2 * io_k + 2 * stat, flops=6 * 64 * pairs),
+            }
+            # SDPA's autograd backward gives dq, dk and dv in one call: the
+            # library time of both backward kernels together.
+            lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (qr, kr, vr), do, retain_graph=True))
+            for kname, r in rec.items():
+                r["bound_ms"], r["bound_by"] = bound(r["nbytes"], r["flops"],
+                                                     H100_BF16_FLOP_PER_S)
+                if kname != "flash_fwd":
+                    r["library_ms"] = lib_bwd
+                    r["library_covers"] = "dq+dk+dv (SDPA autograd backward)"
+                r["max_abs_err"] = errs["o"] if kname == "flash_fwd" else max(
+                    errs[x] for x in (("dk", "dv") if kname == "flash_bwd_dkv" else ("dq",)))
+            per_shape[name] = rec
+            emit({"check": {"name": f"flash_timing[{name}]", "shape": [b, 8, tq, tk, 64],
+                            "causal": causal, **rec}})
+    # The kernels line reports the encoder self-attention shape; each train
+    # step runs every shape 6 times.
+    recs = []
+    for kname, line in (("flash_fwd", 85), ("flash_bwd_dkv", 248), ("flash_bwd_dq", 313)):
+        main = per_shape["encoder_self"][kname]
+        rec = dict(name=kname, source=f"{PKG}/csrc/flash_attention.cu",
+                   replaces=f"speech_tranformer_pytorch_tpu/kernels/flash_attention.py:{line}",
+                   max_abs_err=max(per_shape[s][kname]["max_abs_err"] for s in per_shape),
+                   ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                   bound_by=main["bound_by"], library_ms=main["library_ms"],
+                   shape=[64, 8, 149, 149, 64],
+                   per_train_step_ms={k: 6 * sum(per_shape[s][kname][k] for s in per_shape)
+                                      for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+        emit({"check": rec})
+        recs.append(rec)
+    return recs
+
+
+def _bf16_ulp(torch, x):
+    """The spacing of bfloat16 values at |x| (the smallest normal's at 0)."""
+    x = x.float().abs().clamp(min=torch.finfo(torch.bfloat16).tiny)
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def check_adam(torch, dev):
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.kernels import fused_adam as fa
+    from speech_tranformer_pytorch_tpu_torch.models import SpeechTransformer
+    from speech_tranformer_pytorch_tpu_torch.train import make_fused_opt
+
+    cfg = get_config("base")
+    with torch.device("meta"):
+        shapes = [p.shape for p in SpeechTransformer(cfg.model).parameters()]
+    n = sum(math.prod(s) for s in shapes)
+    if n != 47_021_248:
+        raise AssertionError(f"base has {n} parameters, expected 47,021,248")
+    opt = make_fused_opt(cfg)
+    hyper = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps, weight_decay=opt.weight_decay)
+    g = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda s, std: torch.randn(s, device=dev, generator=g) * std
+    params = [rnd(s, 0.05) for s in shapes]
+    grads = [rnd(s, 1e-2) for s in shapes]      # global norm ~68: clip active
+    mu0 = [rnd(s, 1e-3) for s in shapes]
+    nu0 = [rnd(s, 1e-2).square() for s in shapes]
+    count = torch.tensor(5, dtype=torch.int32, device=dev)
+    timed = None
+    errs = {}
+    for mdt in (torch.bfloat16, torch.float32):
+        for clip_active in (True, False):
+            gs = grads if clip_active else [x * 1e-4 for x in grads]
+            sc = opt.scalars(torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(gs))), count)
+            if bool(sc[0] < 1.0) != clip_active:
+                raise AssertionError(f"clip scale {float(sc[0])} for clip_active={clip_active}")
+            p_k, p_r = [x.clone() for x in params], [x.clone() for x in params]
+            mu_k, nu_k = [x.to(mdt) for x in mu0], [x.to(mdt) for x in nu0]
+            mu_r, nu_r = [x.clone() for x in mu_k], [x.clone() for x in nu_k]
+            fa.fused_adam_cuda(p_k, gs, mu_k, nu_k, sc, **hyper)
+            fa.adam_update_reference(p_r, gs, mu_r, nu_r, sc, **hyper)
+            torch.cuda.synchronize()
+            tag = f"fused_adam[{str(mdt)[6:]},clip={'on' if clip_active else 'off'}]"
+            cat = lambda xs: torch.cat([x.reshape(-1).float() for x in xs])
+            rec = {}
+            for what, got, want in (("p", p_k, p_r), ("mu", mu_k, mu_r), ("nu", nu_k, nu_r)):
+                a, b = cat(got), cat(want)
+                diff = (a - b).abs()
+                if mdt == torch.bfloat16 and what != "p":
+                    bad = diff > _bf16_ulp(torch, b)      # within one bf16 ulp
+                else:
+                    bad = diff > 1e-6 * b.abs()           # within 1e-6 relative
+                if bool(bad.any()):
+                    raise AssertionError(f"{tag}.{what}: {int(bad.sum())} elements off; "
+                                         f"max abs err {float(diff.max())}")
+                rec[what] = {"max_abs_err": float(diff.max()),
+                             "bit_exact": bool(torch.equal(a, b))}
+            errs[tag] = rec
+            emit({"check": {"name": tag, **rec}})
+            if mdt == torch.bfloat16 and clip_active:
+                timed = (p_k, gs, mu_k, nu_k, sc)
+    p_k, gs, mu_k, nu_k, sc = timed
+    ms = device_ms(torch, lambda: fa.fused_adam_cuda(p_k, gs, mu_k, nu_k, sc, **hyper))
+    plain_ms = device_ms(torch, lambda: fa.adam_update_reference(
+        p_k, gs, mu_k, nu_k, sc, **hyper))
+    lib_params = [torch.nn.Parameter(x.clone()) for x in params]
+    for p_, g_ in zip(lib_params, gs):
+        p_.grad = g_
+    lib = torch.optim.Adam(lib_params, lr=1e-4, betas=(opt.b1, opt.b2), eps=opt.eps,
+                           fused=True)
+    library_ms = device_ms(torch, lib.step)
+    nbytes = 20 * n                   # g, p, mu, nu read; p, mu, nu written (bf16 moments)
+    bound_ms, bound_by = bound(nbytes, 16 * n)
+    rec = dict(name="fused_adam", source=f"{PKG}/csrc/fused_adam.cu",
+               replaces="speech_tranformer_pytorch_tpu/ops/fused_adam.py:46",
+               max_abs_err=max(r[w]["max_abs_err"] for r in errs.values() for w in r),
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms,
+               library_note="torch.optim.Adam(fused=True) on the same f32 tree; "
+                            "it keeps f32 moments (28 B a parameter, not 20)",
+               params=n, leaves=len(shapes))
+    emit({"check": rec})
+    return rec
+
+
+TRAIN_STEP_LAUNCHES = {"stft_mel": 1, "beam_prune": 0, "lineage_attention": 0,
+                       "flash_fwd": 18, "flash_bwd_dkv": 18, "flash_bwd_dq": 18,
+                       "fused_adam": 1}
+
+
+def train_path(torch, dev):
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.profile_train import (
+        TIMED_STEPS, WARMUP_STEPS, smoke_train_batch)
+
+    smoke = smoke_train_batch(dev)
+    state, batch, step, cfg = smoke.state, smoke.batch, smoke.step, smoke.cfg
+    layers = cfg.model.num_encoder_layers + 2 * cfg.model.num_decoder_layers
+    if TRAIN_STEP_LAUNCHES["flash_fwd"] != layers:
+        raise AssertionError(f"{layers} attention layers, not 18")
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, losses, norms = [], [], []
+    interface.reset_launch_counts()
+    prev = interface.launch_counts()
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        now = interface.launch_counts()
+        per_step = {k: now[k] - prev[k] for k in now}
+        if per_step != TRAIN_STEP_LAUNCHES:
+            raise AssertionError(f"step {i}: launches {per_step}, expected "
+                                 f"{TRAIN_STEP_LAUNCHES}")
+        prev = now
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    counts = interface.launch_counts()
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss {losses} or grad_norm {norms}")
+    changed = {k: float((p.detach() != before[k]).float().mean())
+               for k, p in state.params.items()}
+    unchanged = [k for k, f in changed.items() if f == 0.0]
+    if unchanged:
+        raise AssertionError(f"parameters that did not change: {unchanged}")
+    timed = walls[WARMUP_STEPS:]
+    wall = statistics.median(timed)
+    emit({"train_path": {
+        "preset": "base", "dtype": cfg.model.dtype, "moment_dtype": cfg.train.moment_dtype,
+        "dropout": cfg.model.dropout_rate, "utterances": int(batch.audio.shape[0]),
+        "target_width": int(batch.targets_in.shape[1]),
+        "steps": len(walls), "step_wall_s_median": wall, "step_wall_s": timed,
+        "audio_s_per_step": float(m["audio_seconds"]),
+        "audio_s_per_s": float(m["audio_seconds"]) / wall,
+        "target_tokens_per_s": float(m["tokens"]) / wall,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "loss": losses, "grad_norm": norms,
+        "min_changed_fraction": min(changed.values()),
+        "launches_per_step": TRAIN_STEP_LAUNCHES, "launches": counts}})
+    return counts
+
+
+def train_card_vs_cpu(torch, dev):
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.data.pipeline import make_preprocess_fn
+    from speech_tranformer_pytorch_tpu_torch.profile_train import smoke_audio_batch
+    from speech_tranformer_pytorch_tpu_torch.train import (
+        create_train_state, loss_and_grads, make_train_step)
+
+    # One float32 step (f32 compute and moments, dropout off) from the same
+    # weights and the same features (made once by the card's fbank kernel:
+    # check_fbank holds that kernel to its plain version at 1e-3, a gap the
+    # log and CMVN would carry into every gradient). Tolerances: loss and
+    # grad norm 1e-4 relative; each gradient leaf within 1e-4 of its
+    # largest value, with two stated exceptions:
+    #  * the key-projection biases of cross-attention, whose exact gradient
+    #    is zero (softmax ignores a shift shared by all keys) and whose
+    #    computed one is rounding noise, are held to 1e-4 of the largest
+    #    gradient of all leaves;
+    #  * the fc1 weight and bias of a feed-forward block in which a ReLU
+    #    input lies within rounding of 0 and takes opposite signs on the two
+    #    devices (counted below) are held to 1e-3: the flip adds or drops one
+    #    row's rank-1 term in that leaf's gradient.
+    # Params within 2·lr plus one f32 ulp of the parameter: the first Adam
+    # step moves an element by lr·m̂/(√v̂ + eps) ≈ ±lr, so an element whose
+    # gradient is noise may flip sign, and each side rounds p - lr·u.
+    cfg = get_config("base", **{"model.dtype": "float32", "model.dropout_rate": 0.0,
+                                "features.output_dtype": "float32",
+                                "train.moment_dtype": "float32"})
+    cpu = torch.device("cpu")
+    abatch = smoke_audio_batch(cfg, 2, seed=7, device=cpu)
+    params = create_train_state(cfg, device=cpu, seed=1).model.state_dict()
+    preprocess = make_preprocess_fn(cfg.features)
+    step = make_train_step(cfg)
+    features = preprocess(abatch.to(dev), dev)
+    out = []
+    for where in (dev, cpu):
+        state = create_train_state(cfg, device=where, params=params)
+        batch = features.to(where)
+        relu_in = {}
+        hooks = [mod.register_forward_hook(
+            lambda _m, _i, y, name=name: relu_in.__setitem__(name, y.detach().cpu()))
+            for name, mod in state.model.named_modules() if name.endswith("ffn.fc1")]
+        grads, _ = loss_and_grads(cfg, state, batch, cfg.train.seed)
+        for h in hooks:
+            h.remove()
+        state, m = step(state, batch)
+        out.append(({k: float(v) for k, v in m.items()},
+                    {k: g.cpu() for k, g in grads.items()},
+                    {k: p.detach().cpu() for k, p in state.params.items()}, relu_in))
+    (m_g, g_g, p_g, r_g), (m_c, g_c, p_c, r_c) = out
+    flips = {k: int(((r_g[k] > 0) != (r_c[k] > 0)).sum()) for k in r_c}
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    top = max(float(g.abs().max()) for g in g_c.values())
+    scale = lambda k: (top if k.endswith("cross_attn.k.bias")
+                       else max(float(g_c[k].abs().max()), 1e-30))
+    tol = lambda k: 1e-3 if flips.get(k.rsplit(".", 1)[0], 0) else 1e-4
+    grad_err = {k: float((g_g[k] - g_c[k]).abs().max()) / scale(k) for k in g_c}
+    grad_bad = {k: e for k, e in grad_err.items() if e > tol(k)}
+    ulp = torch.finfo(torch.float32).eps
+    param_over = {k: float(((p_g[k] - p_c[k]).abs()
+                            - (2 * m_c["lr"] + ulp * p_c[k].abs())).max()) for k in p_c}
+    param_err = {k: float((p_g[k] - p_c[k]).abs().max()) for k in p_c}
+    worst = lambda d: sorted(d.items(), key=lambda kv: -kv[1])[:4]
+    res = {"loss": [m_g["loss"], m_c["loss"]], "grad_norm": [m_g["grad_norm"], m_c["grad_norm"]],
+           "loss_rel_err": rel(m_g["loss"], m_c["loss"]),
+           "grad_norm_rel_err": rel(m_g["grad_norm"], m_c["grad_norm"]),
+           "grad_err_over_leaf_max": max(grad_err.values()),
+           "param_max_abs_err": max(param_err.values()), "lr": m_c["lr"],
+           "worst_grad_leaves": worst(grad_err), "worst_param_leaves": worst(param_err),
+           "relu_sign_flips": {k: n for k, n in flips.items() if n},
+           "grad_leaves_over_tol": grad_bad}
+    emit({"train_card_vs_cpu": res})
+    if not (res["loss_rel_err"] <= 1e-4 and res["grad_norm_rel_err"] <= 1e-4
+            and not grad_bad and max(param_over.values()) <= 0):
+        raise AssertionError(f"card and CPU train steps differ: {res}")
+
+
+def overfit_anchor(torch, dev):
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.data.synthetic import (
+        batch_from_dataset, make_synthetic_dataset)
+    from speech_tranformer_pytorch_tpu_torch.decoding import beam_decode, best_hypotheses
+    from speech_tranformer_pytorch_tpu_torch.decoding.beam import EOS
+    from speech_tranformer_pytorch_tpu_torch.train import create_train_state, make_train_step
+
+    # The JAX anchor's model (tests/test_train.py:22-31) with the tiny
+    # preset's Noam warmup of 100.
+    cfg = get_config("tiny", **{
+        "model.vocab_size": 32, "model.d_model": 128, "model.num_heads": 4,
+        "model.d_ff": 256, "model.num_encoder_layers": 2, "model.num_decoder_layers": 2,
+        "model.dropout_rate": 0.0, "model.subsample_channels": 16})
+    ds = make_synthetic_dataset(10, vocab_size=32, seed=0)
+    batch = batch_from_dataset(ds, cfg.features, device=dev)
+    state = create_train_state(cfg, device=dev, seed=0)
+    step = make_train_step(cfg)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(300):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    wall = time.perf_counter() - t0
+    state.model.eval()
+    res = beam_decode(state.model, batch.feats, batch.frame_lens, beam_size=5,
+                      max_len=8, device=dev)
+    hyps = [[t for t in h if t != EOS] for h in best_hypotheses(res)]
+    emit({"overfit_anchor": {"steps": 300, "first_loss": losses[0],
+                             "final_loss": losses[-1], "ratio": losses[-1] / losses[0],
+                             "wall_s": wall, "transcripts_exact": hyps == ds.transcripts}})
+    if not losses[-1] < 0.35 * losses[0]:
+        raise AssertionError(f"loss {losses[0]} -> {losses[-1]}: not below 0.35x")
+    if hyps != ds.transcripts:
+        raise AssertionError(f"decoded {hyps}, trained on {ds.transcripts}")
+
+
 def main_path(torch, dev):
     from speech_tranformer_pytorch_tpu_torch.kernels import interface
     from speech_tranformer_pytorch_tpu_torch.profile_decode import DECODE, smoke_batch
@@ -250,7 +670,9 @@ def main_path(torch, dev):
     if len(hyps) != len(lens) or any(not 0 <= t < v or t == 2 for h in hyps for t in h):
         raise AssertionError(f"malformed hypotheses {hyps}")
     want = {"stft_mel": 1, "beam_prune": steps,
-            "lineage_attention": cfg.model.num_decoder_layers * steps}
+            "lineage_attention": cfg.model.num_decoder_layers * steps,
+            "flash_fwd": cfg.model.num_encoder_layers, "flash_bwd_dkv": 0,
+            "flash_bwd_dq": 0, "fused_adam": 0}
     if steps <= 0 or counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     audio_s = float(lens.sum()) / cfg.features.sample_rate
@@ -301,9 +723,24 @@ def card_vs_cpu(torch, dev, params, audio, lens):
         raise AssertionError(f"first-step logits differ by {logit_err}")
 
 
+PHASES = ("check_fbank", "check_beam_prune", "check_lineage", "check_flash",
+          "check_adam", "main_path", "card_vs_cpu", "train_path",
+          "train_card_vs_cpu", "overfit_anchor")
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ", ".join(PHASES))
+    phases = ap.parse_args().phases.split(",")
+    bad = [p for p in phases if p not in PHASES]
+    if bad:
+        print(f"chip_smoke: unknown phases {bad}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -323,18 +760,37 @@ def main() -> int:
     _build.build(verbose=True)
     emit({"build_s": time.perf_counter() - t0})
 
-    recs = [check_fbank(torch, dev), check_beam_prune(torch, dev),
-            check_lineage(torch, dev)]
-    counts, params, audio, lens = main_path(torch, dev)
-    card_vs_cpu(torch, dev, params, audio, lens)
+    recs = []
+    for name in PHASES[:5]:
+        if name in phases:
+            t0 = time.perf_counter()
+            out = globals()[name](torch, dev)
+            recs += out if isinstance(out, list) else [out]
+            emit({"phase_s": {name: time.perf_counter() - t0}})
+    counts = {"serve": {}, "train": {}}
+    if "main_path" in phases:
+        counts["serve"], params, audio, lens = main_path(torch, dev)
+        if "card_vs_cpu" in phases:
+            card_vs_cpu(torch, dev, params, audio, lens)
+    if "train_path" in phases:
+        counts["train"] = train_path(torch, dev)
+    for name in ("train_card_vs_cpu", "overfit_anchor"):
+        if name in phases:
+            t0 = time.perf_counter()
+            globals()[name](torch, dev)
+            emit({"phase_s": {name: time.perf_counter() - t0}})
 
     kernels = []
     for r in recs:
+        by_path = {path: c.get(r["name"], 0) for path, c in counts.items()}
         kernels.append({"name": r["name"], "route": "cuda", "source": r["source"],
-                        "replaces": r["replaces"], "launches": counts[r["name"]],
+                        "replaces": r["replaces"], "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    if len(phases) == len(PHASES) and any(k["launches"] == 0 for k in kernels):
+        raise AssertionError(f"a kernel never ran on a main path: {kernels}")
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

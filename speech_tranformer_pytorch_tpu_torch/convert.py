@@ -103,15 +103,26 @@ def params_from_jax(tree: dict, cfg: ModelConfig) -> StateDict:
             x = x.reshape(-1)
         elif kind[0] == "conv":
             x = x.transpose(3, 2, 0, 1)
-        sd[name] = torch.from_numpy(np.array(x, order="C"))   # a writable copy
+        sd[name] = _to_torch(x)
     return sd
 
 
+def _to_torch(x: np.ndarray) -> torch.Tensor:
+    """A writable torch copy; numpy's bfloat16 (an extension dtype torch
+    cannot read) comes over exactly through float32."""
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(x, np.float32, order="C")).to(torch.bfloat16)
+    return torch.from_numpy(np.array(x, order="C"))
+
+
 def params_to_jax(state_dict: StateDict, cfg: ModelConfig) -> dict:
-    """The port's ``state_dict`` -> ``{"params": tree}`` with numpy leaves."""
+    """The port's ``state_dict`` -> ``{"params": tree}`` with numpy leaves
+    (bfloat16 tensors, such as bf16 Adam moments, come back as float32
+    arrays holding the same values: numpy has no bfloat16 of its own)."""
     tree: dict = {}
     for name, path, kind, shape in _entries(cfg):
-        x = state_dict[name].detach().cpu().numpy()
+        t = state_dict[name].detach().cpu()
+        x = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         if kind[0] in ("dense", "bias"):
             x = x.T.reshape(shape)
         elif kind[0] == "conv":
@@ -121,3 +132,39 @@ def params_to_jax(state_dict: StateDict, cfg: ModelConfig) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = np.ascontiguousarray(x)
     return {"params": tree}
+
+
+def _find_moments(state):
+    """The first node of a JAX optimizer state with ``mu`` and ``nu``: a
+    ``FusedAdamState`` itself, or the ``ScaleByAdamState`` inside an optax
+    chain's nested tuples."""
+    if hasattr(state, "mu") and hasattr(state, "nu"):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_moments(s)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_jax(opt_state, cfg: ModelConfig, *, device="cpu"):
+    """A JAX ``FusedAdamState`` or optax chain state (numpy or jax leaves)
+    -> the port's ``ops.fused_adam.AdamState`` on ``device``. mu and nu
+    mirror the param tree, so they cross with ``params_from_jax``; their
+    dtype (f32 or bf16) is kept."""
+    from .ops.fused_adam import AdamState
+
+    node = _find_moments(opt_state)
+    if node is None:
+        raise ValueError("optimizer state has no node with mu and nu")
+    moments = [{k: v.to(device) for k, v in params_from_jax(_as_numpy(tree), cfg).items()}
+               for tree in (node.mu, node.nu)]
+    count = torch.tensor(int(np.asarray(node.count)), dtype=torch.int32, device=device)
+    return AdamState(count=count, mu=moments[0], nu=moments[1])
+
+
+def _as_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _as_numpy(v) for k, v in tree.items()}
+    return np.asarray(tree)

@@ -1,0 +1,516 @@
+// Flash attention for training: forward, dK/dV and dQ.
+//
+// Replaces the TPU kernels of speech_tranformer_pytorch_tpu/kernels/
+// flash_attention.py: `_fa_kernel` (:85, forward with the logsumexp),
+// `_fa_bwd_dkv_kernel` (:248) and `_fa_bwd_dq_kernel` (:313). Semantics:
+//   s[t, j] = q[t] . k[j] / sqrt(D), kept iff j < kv_len[b] (and j <= t when
+//   causal); masked scores are -0.7 * FLT_MAX, never -inf; query rows are
+//   not masked. The forward keeps f32 m, l and accumulator (online softmax)
+//   and writes o and lse = m + log(max(l, 1e-37)); a row with no valid key
+//   gives o = 0 and a finite lse. The backward recomputes
+//   p = exp(s - lse) from the saved lse, never stores scores, and takes
+//   di = rowsum(o * dO) from the caller (the caller may fold an lse
+//   cotangent into it as di - dlse).
+//
+// Layout: every tensor is addressed as (b, h, t, d) through its own
+// (b, h, t) strides with d contiguous, so [B, T, H, D] activations and the
+// views of a fused QKV projection are read in place, with no transpose and
+// no padding copy. lse and di are f32 [B, H, Tq].
+//
+// Design. The TPU grid walked the kv axis (forward, dQ) or the q axis
+// (dKV) in order and carried its sums in scratch; here one block owns one
+// tile of the other axis and walks that axis in a loop, so blocks share no
+// state. Tiles are staged in shared memory; ragged edges are zero-filled on
+// load and masked in the scores; whole tiles past kv_len or above the
+// causal diagonal are never visited. Products run on the tensor cores
+// through WMMA (bf16 in, f32 accumulate) for bf16 inputs and as f32 FMAs
+// for f32 inputs. For bf16 the softmax weights p (forward and backward)
+// and ds are rounded to bf16 before their products, as the TPU forward
+// rounds p before its PV product.
+//
+// What bounds it on an H100: at the train path's shapes (T' ~ 150, D = 64)
+// the bound is bytes (q, k, v, o, lse once); the kernels are latency and
+// shared-memory bound far above it — one 128-thread block per tile, no
+// pipelining of the tile loads (wgmma and TMA are later work).
+#include <cuda_bf16.h>
+#include <mma.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
+
+struct Params {
+  const void *q, *k, *v, *dout;   // dout = dO (backward)
+  void *out, *dq, *dk, *dv;       // out = o (forward)
+  float* lse;                     // [B, H, Tq], written by the forward
+  const float* lse_in;            // [B, H, Tq], read by the backward
+  const float* di;                // [B, H, Tq]
+  const int* kv_len;              // [B]
+  // (b, h, t) strides, in elements, of q, k, v, o, dO, dq, dk, dv.
+  long long s[8][3];
+  int H, Tq, Tk, D, Dp, causal, vec;
+  float scale;
+};
+
+enum { kQ = 0, kK, kV, kO, kDO, kDQ, kDK, kDV };
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ long long offset(const Params& p, int which, int b,
+                                            int h, int t) {
+  return b * p.s[which][0] + h * p.s[which][1] + t * p.s[which][2];
+}
+
+// dst[r][d] (leading dimension ld) = src(b, h, row0 + r, d) for r < rows,
+// d < D, where rows past `limit` and columns in [D, Dp) are zero.
+template <typename T>
+__device__ void load_tile(T* dst, int ld, const Params& p, int which,
+                          const void* src_v, int b, int h, int row0, int rows,
+                          int limit) {
+  const T* src = static_cast<const T*>(src_v);
+  const int D = p.D, Dp = p.Dp;
+  constexpr int kVec = 16 / sizeof(T);
+  if (p.vec) {   // D % kVec == 0 and every row 16-byte aligned (host checks)
+    const int chunks = D / kVec;
+    for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
+      const int r = i / chunks, c = (i - r * chunks) * kVec;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (row0 + r < limit)
+        val = *reinterpret_cast<const uint4*>(src + offset(p, which, b, h, row0 + r) + c);
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+    }
+    if (Dp > D) {
+      for (int i = threadIdx.x; i < rows * (Dp - D); i += blockDim.x) {
+        const int r = i / (Dp - D), c = D + i % (Dp - D);
+        dst[r * ld + c] = from_f<T>(0.f);
+      }
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * Dp; i += blockDim.x) {
+    const int r = i / Dp, c = i - r * Dp;
+    T val = from_f<T>(0.f);
+    if (row0 + r < limit && c < D) val = src[offset(p, which, b, h, row0 + r) + c];
+    dst[r * ld + c] = val;
+  }
+}
+
+// C[M x N] (+)= op(A) op(B) over K; op(A)[i][k] = kTA ? A[k*lda+i] : A[i*lda+k],
+// op(B)[k][j] = kTB ? B[j*ldb+k] : B[k*ldb+j]. M, N, K are multiples of 16.
+// Ends without a barrier.
+template <typename T, bool kTA, bool kTB, bool kAcc>
+__device__ void block_gemm(const T* A, int lda, const T* B, int ldb, float* C,
+                           int ldc, int M, int N, int K) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using namespace nvcuda;
+    using LA = typename std::conditional<kTA, wmma::col_major, wmma::row_major>::type;
+    using LB = typename std::conditional<kTB, wmma::col_major, wmma::row_major>::type;
+    const int warp = threadIdx.x >> 5;
+    const int tiles_n = N / 16;
+    for (int tile = warp; tile < (M / 16) * tiles_n; tile += kWarps) {
+      const int ti = (tile / tiles_n) * 16, tj = (tile % tiles_n) * 16;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+      if (kAcc)
+        wmma::load_matrix_sync(c, C + ti * ldc + tj, ldc, wmma::mem_row_major);
+      else
+        wmma::fill_fragment(c, 0.f);
+      for (int kk = 0; kk < K; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> bm;
+        wmma::load_matrix_sync(a, kTA ? A + kk * lda + ti : A + ti * lda + kk, lda);
+        wmma::load_matrix_sync(bm, kTB ? B + tj * ldb + kk : B + kk * ldb + tj, ldb);
+        wmma::mma_sync(c, a, bm, c);
+      }
+      wmma::store_matrix_sync(C + ti * ldc + tj, c, ldc, wmma::mem_row_major);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < M * N; idx += blockDim.x) {
+      const int i = idx / N, j = idx - i * N;
+      float acc = kAcc ? C[i * ldc + j] : 0.f;
+      for (int kk = 0; kk < K; ++kk) {
+        const float a = kTA ? A[kk * lda + i] : A[i * lda + kk];
+        const float bv = kTB ? B[j * ldb + kk] : B[kk * ldb + j];
+        acc = fmaf(a, bv, acc);
+      }
+      C[i * ldc + j] = acc;
+    }
+  }
+}
+
+__device__ __forceinline__ int clamp_len(const Params& p, int b) {
+  return min(max(p.kv_len[b], 0), p.Tk);
+}
+
+__device__ __forceinline__ bool kept(const Params& p, int row, int col, int kv_len) {
+  return col < kv_len && (!p.causal || col <= row);
+}
+
+// Leading dimensions: T tiles pad by 8 elements, f32 tiles by 4, which keeps
+// every 16-row WMMA tile 32-byte aligned and staggers shared-memory banks.
+__host__ __device__ inline int ld_t(int Dp) { return Dp + 8; }
+__host__ __device__ inline int ld_f(int n) { return n + 4; }
+
+// ---------------------------------------------------------------- forward
+template <typename T, int BQ, int BK>
+__host__ __device__ size_t fwd_smem(int Dp) {
+  return sizeof(T) * (size_t)(BQ + 2 * BK) * ld_t(Dp)      // Q, K, V
+         + sizeof(T) * (size_t)BQ * (BK + 8)                // P
+         + sizeof(float) * (size_t)BQ * (ld_f(BK) + ld_f(Dp))  // S, O
+         + sizeof(float) * 3 * BQ;                          // m, l, alpha
+}
+
+template <typename T, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int Dp = p.Dp, ldt = ld_t(Dp), ldp = BK + 8, lds = ld_f(BK), ldo = ld_f(Dp);
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + BQ * ldt;
+  T* Vs = Ks + BK * ldt;
+  T* Ps = Vs + BK * ldt;
+  float* S = reinterpret_cast<float*>(Ps + BQ * ldp);
+  float* O = S + BQ * lds;
+  float* m = O + BQ * ldo;
+  float* l = m + BQ;
+  float* alpha = l + BQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  const int kv_len = clamp_len(p, b);
+  const int kend = p.causal ? min(kv_len, q0 + BQ) : kv_len;
+  load_tile<T>(Qs, ldt, p, kQ, p.q, b, h, q0, BQ, p.Tq);
+  for (int i = threadIdx.x; i < BQ * ldo; i += blockDim.x) O[i] = 0.f;
+  for (int r = threadIdx.x; r < BQ; r += blockDim.x) {
+    m[r] = kMaskValue;
+    l[r] = 0.f;
+  }
+  __syncthreads();
+
+  for (int k0 = 0; k0 < kend; k0 += BK) {
+    load_tile<T>(Ks, ldt, p, kK, p.k, b, h, k0, BK, kv_len);
+    load_tile<T>(Vs, ldt, p, kV, p.v, b, h, k0, BK, kv_len);
+    __syncthreads();
+    block_gemm<T, false, true, false>(Qs, ldt, Ks, ldt, S, lds, BQ, BK, Dp);
+    __syncthreads();
+    for (int r = warp; r < BQ; r += kWarps) {
+      const int row = q0 + r;
+      float s[BK / 32];
+      float m_cur = kMaskValue;
+#pragma unroll
+      for (int c = 0; c < BK / 32; ++c) {
+        const int col = lane + 32 * c;
+        s[c] = kept(p, row, k0 + col, kv_len) ? S[r * lds + col] * p.scale : kMaskValue;
+        m_cur = fmaxf(m_cur, s[c]);
+      }
+      m_cur = st::warp_max(m_cur);
+      const float m_prev = m[r];
+      const float m_next = fmaxf(m_prev, m_cur);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < BK / 32; ++c) {
+        const float e = expf(s[c] - m_next);
+        sum += e;
+        Ps[r * ldp + lane + 32 * c] = from_f<T>(e);
+      }
+      sum = st::warp_sum(sum);
+      if (lane == 0) {
+        const float a = expf(m_prev - m_next);
+        alpha[r] = a;
+        m[r] = m_next;
+        l[r] = a * l[r] + sum;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < BQ * Dp; i += blockDim.x) {
+      const int r = i / Dp;
+      O[r * ldo + (i - r * Dp)] *= alpha[r];
+    }
+    __syncthreads();
+    block_gemm<T, false, false, true>(Ps, ldp, Vs, ldt, O, ldo, BQ, Dp, BK);
+    __syncthreads();
+  }
+
+  T* out = static_cast<T*>(p.out);
+  for (int i = threadIdx.x; i < BQ * p.D; i += blockDim.x) {
+    const int r = i / p.D, d = i - r * p.D;
+    const int row = q0 + r;
+    if (row < p.Tq) {
+      const float lr = l[r];
+      const float l_inv = lr == 0.f ? 1.f : 1.f / lr;
+      out[offset(p, kO, b, h, row) + d] = from_f<T>(O[r * ldo + d] * l_inv);
+    }
+  }
+  for (int r = threadIdx.x; r < BQ; r += blockDim.x) {
+    const int row = q0 + r;
+    if (row < p.Tq)
+      p.lse[((size_t)b * p.H + h) * p.Tq + row] = m[r] + logf(fmaxf(l[r], 1e-37f));
+  }
+}
+
+// ------------------------------------------------------ backward: shared
+// For one (q tile, kv tile) pair: S = Q K^T, dP = dO V^T, then
+// P = exp(S*scale - lse) on kept pairs (0 elsewhere) and dS = P (dP - di).
+// P and dS are written in T for the following products (Pt may be null).
+template <typename T, int BQ, int BK>
+__device__ void bwd_probs(const Params& p, const T* Qs, const T* dOs, const T* Ks,
+                          const T* Vs, float* S, float* dP, const float* lse_s,
+                          const float* di_s, T* Pt, T* dSt, int q0, int k0,
+                          int kv_len) {
+  const int Dp = p.Dp, ldt = ld_t(Dp), lds = ld_f(BK), ldp = BK + 8;
+  block_gemm<T, false, true, false>(Qs, ldt, Ks, ldt, S, lds, BQ, BK, Dp);
+  block_gemm<T, false, true, false>(dOs, ldt, Vs, ldt, dP, lds, BQ, BK, Dp);
+  __syncthreads();
+  for (int i = threadIdx.x; i < BQ * BK; i += blockDim.x) {
+    const int r = i / BK, c = i - r * BK;
+    const int row = q0 + r;
+    float pv = 0.f;
+    if (row < p.Tq && kept(p, row, k0 + c, kv_len))
+      pv = expf(S[r * lds + c] * p.scale - lse_s[r]);
+    const float ds = pv * (dP[r * lds + c] - di_s[r]);
+    if (Pt != nullptr) Pt[r * ldp + c] = from_f<T>(pv);
+    dSt[r * ldp + c] = from_f<T>(ds);
+  }
+  __syncthreads();
+}
+
+__device__ void load_stats(const Params& p, float* lse_s, float* di_s, int b,
+                           int h, int q0, int rows) {
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    const int row = q0 + r;
+    const size_t at = ((size_t)b * p.H + h) * p.Tq + row;
+    lse_s[r] = row < p.Tq ? p.lse_in[at] : 0.f;
+    di_s[r] = row < p.Tq ? p.di[at] : 0.f;
+  }
+}
+
+// ---------------------------------------------------------- backward dKV
+template <typename T, int BQ, int BK>
+__host__ __device__ size_t dkv_smem(int Dp) {
+  return sizeof(T) * (size_t)(2 * BK + 2 * BQ) * ld_t(Dp)   // K, V, Q, dO
+         + sizeof(T) * (size_t)2 * BQ * (BK + 8)             // P, dS
+         + sizeof(float) * (size_t)2 * BQ * ld_f(BK)         // S, dP
+         + sizeof(float) * (size_t)2 * BK * ld_f(Dp)         // dK, dV
+         + sizeof(float) * 2 * BQ;                           // lse, di
+}
+
+template <typename T, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BK;
+  const int Dp = p.Dp, ldt = ld_t(Dp), ldp = BK + 8, lds = ld_f(BK), ldo = ld_f(Dp);
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + BK * ldt;
+  T* Qs = Vs + BK * ldt;
+  T* dOs = Qs + BQ * ldt;
+  T* Pt = dOs + BQ * ldt;
+  T* dSt = Pt + BQ * ldp;
+  float* S = reinterpret_cast<float*>(dSt + BQ * ldp);
+  float* dP = S + BQ * lds;
+  float* dK = dP + BQ * lds;
+  float* dV = dK + BK * ldo;
+  float* lse_s = dV + BK * ldo;
+  float* di_s = lse_s + BQ;
+
+  const int kv_len = clamp_len(p, b);
+  for (int i = threadIdx.x; i < BK * ldo; i += blockDim.x) {
+    dK[i] = 0.f;
+    dV[i] = 0.f;
+  }
+  if (k0 < kv_len) {   // a tile wholly past kv_len has zero gradients
+    load_tile<T>(Ks, ldt, p, kK, p.k, b, h, k0, BK, kv_len);
+    load_tile<T>(Vs, ldt, p, kV, p.v, b, h, k0, BK, kv_len);
+    // Under the causal mask no row before k0 sees this tile's keys.
+    for (int q0 = p.causal ? (k0 / BQ) * BQ : 0; q0 < p.Tq; q0 += BQ) {
+      load_tile<T>(Qs, ldt, p, kQ, p.q, b, h, q0, BQ, p.Tq);
+      load_tile<T>(dOs, ldt, p, kDO, p.dout, b, h, q0, BQ, p.Tq);
+      load_stats(p, lse_s, di_s, b, h, q0, BQ);
+      __syncthreads();
+      bwd_probs<T, BQ, BK>(p, Qs, dOs, Ks, Vs, S, dP, lse_s, di_s, Pt, dSt, q0,
+                           k0, kv_len);
+      block_gemm<T, true, false, true>(Pt, ldp, dOs, ldt, dV, ldo, BK, Dp, BQ);
+      block_gemm<T, true, false, true>(dSt, ldp, Qs, ldt, dK, ldo, BK, Dp, BQ);
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+  T* dk = static_cast<T*>(p.dk);
+  T* dv = static_cast<T*>(p.dv);
+  for (int i = threadIdx.x; i < BK * p.D; i += blockDim.x) {
+    const int r = i / p.D, d = i - r * p.D;
+    const int row = k0 + r;
+    if (row < p.Tk) {
+      dk[offset(p, kDK, b, h, row) + d] = from_f<T>(dK[r * ldo + d] * p.scale);
+      dv[offset(p, kDV, b, h, row) + d] = from_f<T>(dV[r * ldo + d]);
+    }
+  }
+}
+
+// ----------------------------------------------------------- backward dQ
+template <typename T, int BQ, int BK>
+__host__ __device__ size_t dq_smem(int Dp) {
+  return sizeof(T) * (size_t)(2 * BQ + 2 * BK) * ld_t(Dp)   // Q, dO, K, V
+         + sizeof(T) * (size_t)BQ * (BK + 8)                 // dS
+         + sizeof(float) * (size_t)2 * BQ * ld_f(BK)         // S, dP
+         + sizeof(float) * (size_t)BQ * ld_f(Dp)             // dQ
+         + sizeof(float) * 2 * BQ;                           // lse, di
+}
+
+template <typename T, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int Dp = p.Dp, ldt = ld_t(Dp), ldp = BK + 8, lds = ld_f(BK), ldo = ld_f(Dp);
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* dOs = Qs + BQ * ldt;
+  T* Ks = dOs + BQ * ldt;
+  T* Vs = Ks + BK * ldt;
+  T* dSt = Vs + BK * ldt;
+  float* S = reinterpret_cast<float*>(dSt + BQ * ldp);
+  float* dP = S + BQ * lds;
+  float* dQ = dP + BQ * lds;
+  float* lse_s = dQ + BQ * ldo;
+  float* di_s = lse_s + BQ;
+
+  const int kv_len = clamp_len(p, b);
+  const int kend = p.causal ? min(kv_len, q0 + BQ) : kv_len;
+  load_tile<T>(Qs, ldt, p, kQ, p.q, b, h, q0, BQ, p.Tq);
+  load_tile<T>(dOs, ldt, p, kDO, p.dout, b, h, q0, BQ, p.Tq);
+  load_stats(p, lse_s, di_s, b, h, q0, BQ);
+  for (int i = threadIdx.x; i < BQ * ldo; i += blockDim.x) dQ[i] = 0.f;
+  for (int k0 = 0; k0 < kend; k0 += BK) {
+    load_tile<T>(Ks, ldt, p, kK, p.k, b, h, k0, BK, kv_len);
+    load_tile<T>(Vs, ldt, p, kV, p.v, b, h, k0, BK, kv_len);
+    __syncthreads();
+    bwd_probs<T, BQ, BK>(p, Qs, dOs, Ks, Vs, S, dP, lse_s, di_s, nullptr, dSt,
+                         q0, k0, kv_len);
+    block_gemm<T, false, false, true>(dSt, ldp, Ks, ldt, dQ, ldo, BQ, Dp, BK);
+    __syncthreads();
+  }
+  __syncthreads();
+  T* dq = static_cast<T*>(p.dq);
+  for (int i = threadIdx.x; i < BQ * p.D; i += blockDim.x) {
+    const int r = i / p.D, d = i - r * p.D;
+    const int row = q0 + r;
+    if (row < p.Tq) dq[offset(p, kDQ, b, h, row) + d] = from_f<T>(dQ[r * ldo + d] * p.scale);
+  }
+}
+
+// ---------------------------------------------------------------- launch
+enum Kind { kFwd, kDkv, kDq };
+
+template <Kind kKind, typename T, int BQ, int BK>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  const int own = kKind == kDkv ? BK : BQ;   // rows of the axis a block owns
+  const int rows = kKind == kDkv ? p.Tk : p.Tq;
+  const dim3 grid((rows + own - 1) / own, p.H, batch);
+  void (*kernel)(Params);
+  size_t smem;
+  if constexpr (kKind == kFwd) {
+    kernel = flash_fwd_kernel<T, BQ, BK>;
+    smem = fwd_smem<T, BQ, BK>(p.Dp);
+  } else if constexpr (kKind == kDkv) {
+    kernel = flash_bwd_dkv_kernel<T, BQ, BK>;
+    smem = dkv_smem<T, BQ, BK>(p.Dp);
+  } else {
+    kernel = flash_bwd_dq_kernel<T, BQ, BK>;
+    smem = dq_smem<T, BQ, BK>(p.Dp);
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (grid.x == 0) return cudaSuccess;
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Tiles: bf16 runs 64-row q tiles against 64-row kv tiles (the dKV kernel
+// walks 32-row q tiles to fit two blocks per SM); f32 keeps 32 x 32 so the
+// f32 tiles fit shared memory at D = 128.
+template <Kind kKind>
+cudaError_t dispatch(Params& p, int batch, int is_bf16, cudaStream_t stream) {
+  if (p.D < 1 || p.D > 128 || p.H < 1 || batch < 1 || p.Tq < 0 || p.Tk < 0)
+    return cudaErrorInvalidValue;
+  p.Dp = (p.D + 15) / 16 * 16;
+  if (!is_bf16) return launch<kKind, float, 32, 32>(p, batch, stream);
+  if constexpr (kKind == kDkv) return launch<kKind, __nv_bfloat16, 32, 64>(p, batch, stream);
+  else return launch<kKind, __nv_bfloat16, 64, 64>(p, batch, stream);
+}
+
+Params make_params(const long long* strides, int H, int Tq, int Tk, int D,
+                   int causal, int vec, const int* kv_len) {
+  Params p{};
+  for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < 3; ++j) p.s[i][j] = strides[3 * i + j];
+  p.H = H;
+  p.Tq = Tq;
+  p.Tk = Tk;
+  p.D = D;
+  p.causal = causal;
+  p.vec = vec;
+  p.kv_len = kv_len;
+  p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
+  return p;
+}
+
+}  // namespace
+
+// `strides` is a host array of 24 int64: the (b, h, t) strides of
+// q, k, v, o, dO, dq, dk, dv in that order (unused entries ignored).
+extern "C" int st_flash_fwd(const void* q, const void* k, const void* v, void* o,
+                            float* lse, const int* kv_len, const long long* strides,
+                            int batch, int heads, int tq, int tk, int head_dim,
+                            int causal, int is_bf16, int vec, cudaStream_t stream) {
+  Params p = make_params(strides, heads, tq, tk, head_dim, causal, vec, kv_len);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = o;
+  p.lse = lse;
+  return dispatch<kFwd>(p, batch, is_bf16, stream);
+}
+
+extern "C" int st_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse, const float* di,
+                                void* dk, void* dv, const int* kv_len,
+                                const long long* strides, int batch, int heads,
+                                int tq, int tk, int head_dim, int causal,
+                                int is_bf16, int vec, cudaStream_t stream) {
+  Params p = make_params(strides, heads, tq, tk, head_dim, causal, vec, kv_len);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse_in = lse;
+  p.di = di;
+  p.dk = dk;
+  p.dv = dv;
+  return dispatch<kDkv>(p, batch, is_bf16, stream);
+}
+
+extern "C" int st_flash_bwd_dq(const void* q, const void* k, const void* v,
+                               const void* dout, const float* lse, const float* di,
+                               void* dq, const int* kv_len, const long long* strides,
+                               int batch, int heads, int tq, int tk, int head_dim,
+                               int causal, int is_bf16, int vec, cudaStream_t stream) {
+  Params p = make_params(strides, heads, tq, tk, head_dim, causal, vec, kv_len);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse_in = lse;
+  p.di = di;
+  p.dq = dq;
+  return dispatch<kDq>(p, batch, is_bf16, stream);
+}

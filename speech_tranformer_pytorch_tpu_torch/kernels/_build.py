@@ -35,6 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)   # a host int64 array
 # C signatures: every entry point returns cudaError_t as int.
 SIGNATURES = {
     # wave, c_eff, s_eff, mel, out, batch, num_samples, n_frames,
@@ -46,6 +48,20 @@ SIGNATURES = {
     # q, k, v, lineage, out, batch, beams, max_len, heads, head_dim,
     # index, is_bf16, stream
     "st_lineage_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, o, lse, kv_len, strides[24], batch, heads, tq, tk, head_dim,
+    # causal, is_bf16, vec, stream
+    "st_flash_fwd": [_P, _P, _P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, dout, lse, di, dk, dv, kv_len, strides[24], batch, heads, tq,
+    # tk, head_dim, causal, is_bf16, vec, stream
+    "st_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LP, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _P],
+    # q, k, v, dout, lse, di, dq, kv_len, strides[24], batch, heads, tq, tk,
+    # head_dim, causal, is_bf16, vec, stream
+    "st_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _LP, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _P],
+    # leaves, n_leaves, max_numel, scalars, b1, 1-b1, b2, 1-b2, eps,
+    # weight_decay, bf16_moments, stream
+    "st_fused_adam": [_P, _I, _L, _P, _F, _F, _F, _F, _F, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -8,16 +8,21 @@ fails to build or launch raises. Each kernel wrapper counts its launches;
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
-from . import beam_prune, lineage_attention as lineage, stft_mel
+from . import beam_prune, flash_attention as flash, fused_adam as adam
+from . import lineage_attention as lineage, stft_mel
 
 _WRAPPERS = {
     "stft_mel": stft_mel.log_mel_cuda,
     "beam_prune": beam_prune.candidate_topk_cuda,
     "lineage_attention": lineage.lineage_attention_cuda,
+    "flash_fwd": flash.flash_fwd_cuda,
+    "flash_bwd_dkv": flash.flash_bwd_dkv_cuda,
+    "flash_bwd_dq": flash.flash_bwd_dq_cuda,
+    "fused_adam": adam.fused_adam_cuda,
 }
 
 
@@ -49,6 +54,55 @@ def lineage_attention(q_new, self_k, self_v, lineage_table, index, beam_width):
     fn = (lineage.lineage_attention_cuda if _on_cuda(self_k)
           else lineage.lineage_attention_reference)
     return fn(q_new, self_k, self_v, lineage_table, index, beam_width)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    kv_lengths: torch.Tensor, causal: bool,
+                    dropout_rate: float = 0.0,
+                    deterministic: bool = True) -> torch.Tensor:
+    """[B, T, H, D] x [B, S, H, D] -> [B, T, H, D] attention with ragged key
+    lengths (kernels/flash_attention.py): the autograd Function over the
+    three kernels for CUDA tensors, the plain version with torch autograd
+    for CPU tensors. Attention dropout is not ported."""
+    if dropout_rate > 0.0 and not deterministic:
+        raise NotImplementedError(
+            "attention dropout (model.attention_dropout_rate > 0) is not "
+            "ported yet: ROADMAP queue A, 'training slice, left out'")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))     # [B, H, T, D] views
+    if _on_cuda(q):
+        out = flash.FlashAttention.apply(qt, kt, vt, kv_lengths, causal)
+    else:
+        out = flash.flash_attention_reference(qt, kt, vt, kv_lengths, causal=causal)
+    return out.transpose(1, 2)
+
+
+def flash_fwd(q, k, v, kv_lengths, *, causal: bool):
+    """(o, lse) of [B, H, T, D] inputs (the forward kernel, B-4)."""
+    fn = flash.flash_fwd_cuda if _on_cuda(q) else flash.flash_fwd_reference
+    return fn(q, k, v, kv_lengths, causal=causal)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, di, kv_lengths, *, causal: bool):
+    """(dk, dv) recomputed from lse (the dK/dV kernel, B-5)."""
+    fn = flash.flash_bwd_dkv_cuda if _on_cuda(q) else flash.flash_bwd_dkv_reference
+    return fn(q, k, v, do, lse, di, kv_lengths, causal=causal)
+
+
+def flash_bwd_dq(q, k, v, do, lse, di, kv_lengths, *, causal: bool):
+    """dq recomputed from lse (the dQ kernel, B-6)."""
+    fn = flash.flash_bwd_dq_cuda if _on_cuda(q) else flash.flash_bwd_dq_reference
+    return fn(q, k, v, do, lse, di, kv_lengths, causal=causal)
+
+
+def fused_adam(params: List[torch.Tensor], grads: List[torch.Tensor],
+               mus: List[torch.Tensor], nus: List[torch.Tensor],
+               scalars: torch.Tensor, *, b1: float, b2: float, eps: float,
+               weight_decay: float) -> None:
+    """In-place clip-scaled Adam over every leaf (kernels/fused_adam.py):
+    one kernel launch for CUDA tensors, the plain loop for CPU tensors."""
+    fn = adam.fused_adam_cuda if _on_cuda(params[0]) else adam.adam_update_reference
+    fn(params, grads, mus, nus, scalars, b1=b1, b2=b2, eps=eps,
+       weight_decay=weight_decay)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -24,6 +24,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..kernels import interface
 from ..ops import masks as mask_ops
+from ..ops.dropout import dropout
 from .modules import FeedForward, LayerNorm, MultiHeadAttention, PositionalEncoding
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
@@ -33,24 +34,34 @@ class DecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.normalize_before = cfg.normalize_before
+        self.dropout_rate = cfg.dropout_rate
         self.self_attn = MultiHeadAttention(cfg.d_model, cfg.num_heads,
-                                            fused_qkv=cfg.fused_qkv)
-        self.cross_attn = MultiHeadAttention(cfg.d_model, cfg.num_heads)
-        self.ffn = FeedForward(cfg.d_model, cfg.d_ff)
+                                            fused_qkv=cfg.fused_qkv,
+                                            dropout_rate=cfg.attention_dropout_rate)
+        self.cross_attn = MultiHeadAttention(cfg.d_model, cfg.num_heads,
+                                             dropout_rate=cfg.attention_dropout_rate)
+        self.ffn = FeedForward(cfg.d_model, cfg.d_ff, cfg.dropout_rate)
         self.ln1 = LayerNorm(cfg.d_model)
         self.ln2 = LayerNorm(cfg.d_model)
         self.ln3 = LayerNorm(cfg.d_model)
 
-    def forward(self, x, self_bias, memory, cross_bias):
+    def forward(self, x, memory, tgt_lens, mem_lens, *, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """Teacher-forced layer: causal self-attention over the first
+        ``tgt_lens`` targets, cross-attention over ``mem_lens`` frames."""
+        kw = dict(deterministic=deterministic, generator=generator)
+        drop = lambda y: dropout(y, self.dropout_rate, **kw)
+        self_attend = lambda h: self.self_attn(h, h, kv_lengths=tgt_lens, causal=True,
+                                               deterministic=deterministic)
+        cross_attend = lambda h: self.cross_attn(h, memory, kv_lengths=mem_lens,
+                                                 deterministic=deterministic)
         if self.normalize_before:
-            h = self.ln1(x)
-            x = x + self.self_attn(h, h, self_bias)
-            h = self.ln2(x)
-            x = x + self.cross_attn(h, memory, cross_bias)
-            return x + self.ffn(self.ln3(x))
-        x = self.ln1(x + self.self_attn(x, x, self_bias))
-        x = self.ln2(x + self.cross_attn(x, memory, cross_bias))
-        return self.ln3(x + self.ffn(x))
+            x = x + drop(self_attend(self.ln1(x)))
+            x = x + drop(cross_attend(self.ln2(x)))
+            return x + drop(self.ffn(self.ln3(x), **kw))
+        x = self.ln1(x + drop(self_attend(x)))
+        x = self.ln2(x + drop(cross_attend(x)))
+        return self.ln3(x + drop(self.ffn(x, **kw)))
 
     # ----- step decoding ---------------------------------------------------
 
@@ -105,7 +116,8 @@ class Decoder(nn.Module):
         super().__init__()
         self.d_model = cfg.d_model
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model)
-        self.pos_enc = PositionalEncoding(cfg.d_model, cfg.max_target_positions)
+        self.pos_enc = PositionalEncoding(cfg.d_model, cfg.max_target_positions,
+                                          cfg.dropout_rate)
         self.layers = nn.ModuleList(DecoderLayer(cfg)
                                     for _ in range(cfg.num_decoder_layers))
         self.final_norm = LayerNorm(cfg.d_model)
@@ -128,17 +140,16 @@ class Decoder(nn.Module):
         scale = torch.tensor(self.d_model ** 0.5, dtype=emb.dtype, device=emb.device)
         return emb * scale
 
-    def forward(self, targets_in, tgt_lens, memory, mem_lens) -> torch.Tensor:
-        """Teacher-forced decode; returns logits [B, U, V] (f32)."""
-        u, s = targets_in.shape[1], memory.shape[1]
-        x = self.pos_enc(self._embed_scaled(targets_in))
-        self_bias = mask_ops.mask_to_bias(
-            mask_ops.self_attention_mask(tgt_lens, u, causal=True))
-        cross_bias = mask_ops.mask_to_bias(
-            mask_ops.padding_attention_mask(u, mem_lens, s))
+    def forward(self, targets_in, tgt_lens, memory, mem_lens, *,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher-forced decode; returns logits [B, U, V] (f32). Rows past
+        ``tgt_lens`` are finite and meaningless (the loss weights them 0)."""
+        kw = dict(deterministic=deterministic, generator=generator)
+        x = self.pos_enc(self._embed_scaled(targets_in), **kw)
         mem = memory.to(x.dtype)
         for layer in self.layers:
-            x = layer(x, self_bias, mem, cross_bias)
+            x = layer(x, mem, tgt_lens, mem_lens, **kw)
         return self._logits(self.final_norm(x))
 
     # ----- step decoding ---------------------------------------------------

@@ -1,11 +1,15 @@
 """Core model modules (counterpart of the JAX package's ``models/modules.py``).
 
-Inference only in this slice: there is no dropout, and the attention core
-is plain matmul + float32 softmax. Every module computes in the dtype of its
-parameters; ``Recognizer`` casts the whole model to ``model.dtype`` once.
-Layouts follow the JAX package at the function boundaries: activations are
-[B, T, d], attention heads [B, T, H, D], the cross-attention cache
-head-major [B, H, S, D].
+Every module computes in the dtype of its parameters (``Recognizer`` casts
+the model to ``model.dtype`` once; the train step casts the f32 master
+parameters once per step) and takes ``deterministic`` (no dropout, the
+serving default) and a ``generator`` for the dropout bits. Teacher-forced
+attention goes through ``kernels/interface.flash_attention`` with the key
+lengths and the causal flag the JAX package passes; query rows are not
+masked (flash semantics), so rows past a length hold finite values that
+the loss ignores. Layouts follow the JAX package at the function
+boundaries: activations are [B, T, d], attention heads [B, T, H, D], the
+cross-attention cache head-major [B, H, S, D].
 """
 
 from __future__ import annotations
@@ -17,6 +21,9 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ..kernels import interface
+from ..ops.dropout import dropout
 
 
 def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
@@ -31,20 +38,25 @@ def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
 
 
 class PositionalEncoding(nn.Module):
-    def __init__(self, d_model: int, max_len: int):
+    def __init__(self, d_model: int, max_len: int, dropout_rate: float = 0.0):
         super().__init__()
         self.max_len = max_len
+        self.dropout_rate = dropout_rate
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_position_encoding(max_len, d_model)),
             persistent=False)
 
-    def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, offset: int = 0, *,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         seq_len = x.shape[-2]
         if seq_len + offset > self.max_len:
             raise ValueError(
                 f"sequence length {seq_len}+{offset} exceeds positional table "
                 f"max_len={self.max_len}")
-        return x + self.pe[offset:offset + seq_len].to(x.dtype)
+        x = x + self.pe[offset:offset + seq_len].to(x.dtype)
+        return dropout(x, self.dropout_rate, deterministic=deterministic,
+                       generator=generator)
 
 
 def conv_output_length(length: torch.Tensor, kernel: int = 3,
@@ -80,25 +92,15 @@ class Conv2dSubsampling(nn.Module):
         return self.out(x)
 
 
-def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """[B,T,H,D] x [B,S,H,D] -> [B,T,H,D]. Scores and softmax in float32
-    (bf16 products are exact in f32); weights cast to v's dtype for AV."""
-    depth = q.shape[-1]
-    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) / math.sqrt(depth)
-    if bias is not None:
-        scores = scores + bias.float()
-    weights = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhts,bshd->bthd", weights, v)
-
-
 class MultiHeadAttention(nn.Module):
-    """Self/cross attention with an additive bias mask. ``fused_qkv``
+    """Self/cross attention with ragged key lengths. ``fused_qkv``
     (self-attention only) projects q, k and v with one [d, 3·d] matmul."""
 
-    def __init__(self, d_model: int, num_heads: int, fused_qkv: bool = False):
+    def __init__(self, d_model: int, num_heads: int, fused_qkv: bool = False,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.head_dim = d_model // num_heads
         self.fused_qkv = fused_qkv
         if fused_qkv:
@@ -128,11 +130,16 @@ class MultiHeadAttention(nn.Module):
             return k, v
         return self._heads(self.k(kv_in)), self._heads(self.v(kv_in))
 
-    def attend(self, q_in, k, v, bias, *, q: Optional[torch.Tensor] = None):
-        """Attention against [B,S,H,D] keys/values, then the out projection."""
+    def attend(self, q_in, k, v, *, kv_lengths: torch.Tensor, causal: bool = False,
+               deterministic: bool = True, q: Optional[torch.Tensor] = None):
+        """Attention against [B,S,H,D] keys/values (key j of row b kept iff
+        j < kv_lengths[b], and j <= t when causal), then the out projection."""
         if q is None:
             q = self.project_q(q_in)
-        return self.out(dot_product_attention(q, k, v, bias).flatten(-2))
+        out = interface.flash_attention(q, k, v, kv_lengths=kv_lengths, causal=causal,
+                                        dropout_rate=self.dropout_rate,
+                                        deterministic=deterministic)
+        return self.out(out.flatten(-2))
 
     def attend_bhsd(self, q_in: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -147,22 +154,30 @@ class MultiHeadAttention(nn.Module):
         out = torch.einsum("bhts,bhsd->bhtd", weights, v)
         return self.out(out.transpose(1, 2).flatten(-2))
 
-    def forward(self, q_in, kv_in, bias):
+    def forward(self, q_in, kv_in, *, kv_lengths: torch.Tensor, causal: bool = False,
+                deterministic: bool = True):
         if self.fused_qkv and q_in is kv_in:
             q, k, v = self.project_qkv(q_in)
         else:
             q, (k, v) = None, self.project_kv(kv_in)
-        return self.attend(q_in, k, v, bias, q=q)
+        return self.attend(q_in, k, v, kv_lengths=kv_lengths, causal=causal,
+                           deterministic=deterministic, q=q)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ff: int):
+    """Linear → ReLU → dropout → Linear."""
+
+    def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(d_model, d_ff)
         self.fc2 = nn.Linear(d_ff, d_model)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.relu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = dropout(F.relu(self.fc1(x)), self.dropout_rate,
+                    deterministic=deterministic, generator=generator)
+        return self.fc2(h)
 
 
 class LayerNorm(nn.LayerNorm):

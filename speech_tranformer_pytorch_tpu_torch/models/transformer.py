@@ -4,7 +4,7 @@ package's ``models/transformer.py``)."""
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,10 +24,15 @@ class SpeechTransformer(nn.Module):
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
 
-    def forward(self, feats, frame_lens, targets_in, tgt_lens) -> torch.Tensor:
-        """Teacher-forced forward; returns logits [B, U, V] (f32)."""
-        memory, mem_lens = self.encoder(feats, frame_lens)
-        return self.decoder(targets_in, tgt_lens, memory, mem_lens)
+    def forward(self, feats, frame_lens, targets_in, tgt_lens, *,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher-forced forward; returns logits [B, U, V] (f32).
+        ``deterministic=False`` turns dropout on, its bits drawn from
+        ``generator``."""
+        kw = dict(deterministic=deterministic, generator=generator)
+        memory, mem_lens = self.encoder(feats, frame_lens, **kw)
+        return self.decoder(targets_in, tgt_lens, memory, mem_lens, **kw)
 
     def encode(self, feats, frame_lens) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.encoder(feats, frame_lens)

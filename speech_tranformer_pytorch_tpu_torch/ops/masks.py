@@ -30,16 +30,6 @@ def padding_attention_mask(q_len: int, kv_lengths: torch.Tensor,
     return kv_valid[:, None, None, :].expand(-1, 1, q_len, kv_len)
 
 
-def self_attention_mask(lengths: torch.Tensor, max_len: int, *,
-                        causal: bool = False) -> torch.Tensor:
-    """Combined pad (+ optional causal) self-attention mask [B,1,T,T]."""
-    valid = length_mask(lengths, max_len)
-    mask = valid[:, None, None, :] & valid[:, None, :, None]
-    if causal:
-        mask = mask & causal_mask(max_len, lengths.device)[None, None]
-    return mask
-
-
 def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """bool mask -> additive attention bias (0 keep / NEG_INF drop)."""
     zero = torch.zeros((), dtype=dtype, device=mask.device)

@@ -62,6 +62,9 @@ def test_import_leaves_jax_out():
         "import speech_tranformer_pytorch_tpu_torch.convert\n"
         "import speech_tranformer_pytorch_tpu_torch.profile_decode\n"
         "import speech_tranformer_pytorch_tpu_torch.data.synthetic\n"
+        "import speech_tranformer_pytorch_tpu_torch.data.pipeline\n"
+        "import speech_tranformer_pytorch_tpu_torch.train\n"
+        "import speech_tranformer_pytorch_tpu_torch.profile_train\n"
         "new = set(sys.modules) - before\n"
         "bad = [m for m in new if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'flax' or m.startswith('flax.')\n"

@@ -75,9 +75,17 @@ def test_encoder_and_teacher_forced_logits_match(pair):
         logits = model(*(_t(x[k]) for k in ("feats", "frame_lens", "targets",
                                             "tgt_lens")))
     np.testing.assert_array_equal(lens.numpy(), np.asarray(jlens))
+    # Memory is zeroed past each length in both packages: compared in full.
     np.testing.assert_allclose(mem.numpy(), np.asarray(jmem), **TOL)
     assert logits.dtype == torch.float32
-    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    # The port's attention has flash semantics (keys masked by length, query
+    # rows not masked), as the JAX flash path does on a TPU; the JAX dot path
+    # here gives a padded target row uniform weights instead. The loss
+    # weights those rows 0, so only valid target positions must agree.
+    got, want = logits.numpy(), np.asarray(jlogits)
+    for b, n in enumerate(x["tgt_lens"]):
+        np.testing.assert_allclose(got[b, :n], want[b, :n], **TOL)
+    assert np.isfinite(got).all()
 
 
 def test_decode_steps_match(pair):
