@@ -8,15 +8,20 @@ Phases (any failure exits non-zero before the final line):
   2. build the CUDA kernels from ``speech_tranformer_pytorch_tpu_torch/csrc``
      and check each against its plain PyTorch version on the card, at the
      main paths' shapes, with timings (CUDA events) and the roofline bound:
-     fbank, beam prune, lineage attention, flash attention forward, dK/dV
-     and dQ (``check_flash``) and the fused Adam (``check_adam``);
+     fbank, beam prune, lineage attention (beam 5 and K = 1), flash
+     attention forward, dK/dV and dQ (``check_flash``), the fused Adam
+     (``check_adam``), the int8 matmul (``check_int8_matmul``) and the
+     fused int8 feed-forward with its determinism (``check_int8_ffn``);
   3. the serving main path: ``Recognizer.decode_batch`` at the ``base``
      preset (full width, bf16, seeded random weights) serving 8 int16
      utterances of 4-6 s with beam 5 and max_len 100, with the kernels'
-     launch counts;
-  4. the same path in float32 on 2 utterances, on the card with the kernels
-     and on the CPU with the plain versions: hypotheses must be identical
-     and the first step's logits within 1e-3;
+     exact launch counts; then the int8 serving path (``int8_path``): the
+     same batch with int8 weights and the int8 cross-K/V cache, at beam 5
+     and greedily (beam 1), each with exact launch counts;
+  4. each serving path in float32 on 2 utterances, on the card with the
+     kernels and on the CPU with the plain versions (``card_vs_cpu``,
+     ``int8_card_vs_cpu`` at beam 5 and at beam 1, greedy): hypotheses
+     must be identical and the first step's logits within 1e-3;
   5. the train main path (``train_path``): 3 + 10 steps of the ``base``
      preset (full width and depth, bf16 over f32 masters, dropout 0.1) on
      64 int16 utterances, with exact per-step launch counts;
@@ -193,7 +198,7 @@ def check_lineage(torch, dev):
     b, k, L, h, d = 8, 5, 100, 8, 64
     g = torch.Generator().manual_seed(2)
 
-    def inputs(index, dtype):
+    def inputs(index, dtype, k=k):
         q = torch.randn(b * k, 1, h, d, generator=g)
         ck = torch.randn(b * k, L, h, d, generator=g)
         cv = torch.randn(b * k, L, h, d, generator=g)
@@ -213,6 +218,14 @@ def check_lineage(torch, dev):
             name = f"lineage_attention[{str(dtype)[6:]},index={index}]"
             errs[(dtype, index)] = check_close(name, got, want, atol, 1e-5)
             emit({"check": {"name": name, "max_abs_err": errs[(dtype, index)]}})
+        for index in (0, 31, 99):      # K = 1: greedy decoding's identity lineage
+            args = inputs(index, dtype, k=1)
+            got = la.lineage_attention_cuda(*args, index, 1)
+            want = la.lineage_attention_reference(*args, index, 1)
+            torch.cuda.synchronize()
+            name = f"lineage_attention[{str(dtype)[6:]},K=1,index={index}]"
+            err = check_close(name, got, want, atol, 1e-5)
+            emit({"check": {"name": name, "max_abs_err": err}})
     # Timed at the main path's dtype, mid-decode (index 49 of L=100).
     index = 49
     args = inputs(index, torch.bfloat16)
@@ -472,9 +485,158 @@ def check_adam(torch, dev):
     return rec
 
 
+def _int8_operands(torch, dev, g, m, k, n, dtype):
+    x = torch.randn(m, k, generator=g).to(dev, dtype)
+    wq = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8).to(dev)
+    scale = (torch.rand(n, generator=g) * 0.019 + 0.001).to(dev)
+    return x, wq, scale
+
+
+def _row_rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    rowmax = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    return float(((got - want).abs() / rowmax).max())
+
+
+# Int8 matmul: the base decode shapes (B·K = 40 rows at beam 5, 8 greedy)
+# of the self qkv (n 1536) and the q / out projections (n 512), the cross
+# K/V projections of init_cache (B·S = 1192 rows), a wide layer, a single
+# row and a ragged one. Tolerances: f32 within 1e-5 of each row's largest
+# value (summation order only); bf16 within one bf16 ulp of the plain
+# version's value (the same f32 value, rounded once to bf16) plus the same
+# 1e-5 of the row's largest value (outputs near 0 come from cancelling
+# sums, whose order-dependent f32 error exceeds their own ulp).
+INT8_MATMUL_SHAPES = [(40, 512, 1536), (40, 512, 512), (8, 512, 1536), (8, 512, 512),
+                      (1192, 512, 512), (48, 2048, 6144), (1, 512, 512), (7, 96, 200)]
+
+
+def check_int8_matmul(torch, dev):
+    from torch.nn import functional as F
+    from speech_tranformer_pytorch_tpu_torch.kernels import int8_matmul as mm
+
+    g = torch.Generator().manual_seed(6)
+    errs, timed, failed = {}, None, []
+    for m, k, n in INT8_MATMUL_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, wq, scale = _int8_operands(torch, dev, g, m, k, n, dtype)
+            got = mm.int8_matmul_cuda(x, wq, scale)
+            want = mm.int8_matmul_reference(x, wq, scale)
+            torch.cuda.synchronize()
+            tag = f"int8_matmul[{m}x{k}x{n},{str(dtype)[6:]}]"
+            if got.dtype != dtype or got.shape != (m, n):
+                raise AssertionError(f"{tag}: {got.dtype} {tuple(got.shape)}")
+            if dtype == torch.bfloat16:
+                diff = (got.float() - want.float()).abs()
+                rowmax = want.float().abs().amax(dim=1, keepdim=True)
+                bad = diff > _bf16_ulp(torch, want) + 1e-5 * rowmax
+                err = float(diff.max())
+            else:
+                err = _row_rel_err(got, want)
+                bad = torch.tensor(err > 1e-5)
+            errs[tag] = err
+            emit({"check": {"name": tag, "max_err": err, "n_bad": int(bad.sum()),
+                            "err_is": "abs" if dtype == torch.bfloat16 else "of row max"}})
+            if bool(bad.any()):
+                failed.append(tag)
+            if (m, k, n) == (40, 512, 1536) and dtype == torch.bfloat16:
+                timed = (x, wq, scale)
+    if failed:
+        raise AssertionError(f"int8_matmul outside its tolerance: {failed}")
+    x, wq, scale = timed
+    m, k = x.shape
+    n = wq.shape[1]
+    w_deq = (wq.to(torch.bfloat16) * scale.to(torch.bfloat16)[None, :]).t().contiguous()
+    ms = device_ms(torch, lambda: mm.int8_matmul_cuda(x, wq, scale))
+    plain_ms = device_ms(torch, lambda: mm.int8_matmul_reference(x, wq, scale))
+    library_ms = device_ms(torch, lambda: F.linear(x, w_deq))
+    nbytes = 2 * m * k + k * n + 4 * n + 2 * m * n
+    bound_ms, bound_by = bound(nbytes, 2 * m * k * n, H100_BF16_FLOP_PER_S)
+    rec = dict(name="int8_matmul", source=f"{PKG}/csrc/int8_matmul.cu",
+               replaces="speech_tranformer_pytorch_tpu/kernels/int8_matmul.py:52",
+               max_abs_err=max(v for t, v in errs.items() if "bfloat16" in t),
+               max_err_f32_of_row_max=max(v for t, v in errs.items() if "float32" in t),
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms,
+               library_note="F.linear on the weight dequantized to bf16 (rounds w*s "
+                            "to bf16 before the product; reads 2 B a weight)",
+               shape=[m, k, n])
+    emit({"check": rec})
+    return rec
+
+
+# Fused int8 feed-forward: the base decode shape (B·K = 40, greedy 8) and a
+# ragged one. Tolerances: f32 within 1e-5 of each row's largest value;
+# bf16 within 1e-3 of it (the JAX kernel's bound: the hidden layer is
+# rounded to bf16 after differently ordered sums) plus one bf16 ulp of the
+# output. Two calls on the same inputs must be bit-equal.
+INT8_FFN_SHAPES = [(40, 512, 2048, 512), (8, 512, 2048, 512), (7, 96, 200, 72)]
+
+
+def check_int8_ffn(torch, dev):
+    from torch.nn import functional as F
+    from speech_tranformer_pytorch_tpu_torch.kernels import int8_ffn as ffn
+
+    g = torch.Generator().manual_seed(7)
+    errs, abs_errs, timed, deterministic, failed = {}, {}, None, True, []
+    for m, k, ff, n in INT8_FFN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w1, s1 = _int8_operands(torch, dev, g, m, k, ff, dtype)
+            _, w2, s2 = _int8_operands(torch, dev, g, 1, ff, n, dtype)
+            b1 = (torch.randn(ff, generator=g) * 0.1).to(dev)
+            b2 = (torch.randn(n, generator=g) * 0.1).to(dev)
+            args = (x, w1, s1, b1, w2, s2, b2)
+            got = ffn.int8_ffn_cuda(*args)
+            again = ffn.int8_ffn_cuda(*args)
+            want = ffn.int8_ffn_reference(*args)
+            torch.cuda.synchronize()
+            tag = f"int8_ffn[{m}x{k}x{ff}x{n},{str(dtype)[6:]}]"
+            if got.dtype != dtype or got.shape != (m, n):
+                raise AssertionError(f"{tag}: {got.dtype} {tuple(got.shape)}")
+            same = bool(torch.equal(got, again))
+            deterministic &= same
+            err = _row_rel_err(got, want)
+            if dtype == torch.bfloat16:
+                rowmax = want.float().abs().amax(dim=1, keepdim=True)
+                bad = (got.float() - want.float()).abs() > 1e-3 * rowmax + _bf16_ulp(torch, want)
+            else:
+                bad = torch.tensor(err > 1e-5)
+            errs[tag] = err
+            abs_errs[tag] = float((got.float() - want.float()).abs().max())
+            emit({"check": {"name": tag, "max_err_of_row_max": err, "n_bad": int(bad.sum()),
+                            "max_abs_err": abs_errs[tag], "second_call_bit_equal": same}})
+            if bool(bad.any()) or not same:
+                failed.append(tag)
+            if (m, dtype) == (40, torch.bfloat16) and k == 512:
+                timed = args
+    if failed:
+        raise AssertionError(f"int8_ffn outside its tolerance or not deterministic: {failed}")
+    x, w1, s1, b1, w2, s2, b2 = timed
+    m, k = x.shape
+    ff, n = w2.shape
+    d1 = (w1.to(torch.bfloat16) * s1.to(torch.bfloat16)[None, :]).t().contiguous()
+    d2 = (w2.to(torch.bfloat16) * s2.to(torch.bfloat16)[None, :]).t().contiguous()
+    bb1, bb2 = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+    ms = device_ms(torch, lambda: ffn.int8_ffn_cuda(*timed))
+    plain_ms = device_ms(torch, lambda: ffn.int8_ffn_reference(*timed))
+    chain_ms = device_ms(torch, lambda: F.linear(F.relu(F.linear(x, d1, bb1)), d2, bb2))
+    nbytes = 2 * m * k + k * ff + ff * n + 8 * ff + 8 * n + 2 * m * n
+    bound_ms, bound_by = bound(nbytes, 2 * m * ff * (k + n), H100_BF16_FLOP_PER_S)
+    rec = dict(name="int8_ffn", source=f"{PKG}/csrc/int8_ffn.cu",
+               replaces="speech_tranformer_pytorch_tpu/kernels/int8_ffn.py:50",
+               max_abs_err=max(abs_errs.values()), max_err_of_row_max=max(errs.values()),
+               deterministic=deterministic, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               yardstick_ms=chain_ms,
+               yardstick_note="F.linear + relu + F.linear on bf16-dequantized weights "
+                              "(three calls; no single PyTorch call fuses them)",
+               shape=[m, k, ff, n])
+    emit({"check": rec})
+    return rec
+
+
 TRAIN_STEP_LAUNCHES = {"stft_mel": 1, "beam_prune": 0, "lineage_attention": 0,
                        "flash_fwd": 18, "flash_bwd_dkv": 18, "flash_bwd_dq": 18,
-                       "fused_adam": 1}
+                       "fused_adam": 1, "int8_matmul": 0, "int8_ffn": 0}
 
 
 def train_path(torch, dev):
@@ -645,13 +807,29 @@ def overfit_anchor(torch, dev):
         raise AssertionError(f"decoded {hyps}, trained on {ds.transcripts}")
 
 
-def main_path(torch, dev):
+def expected_serve_launches(cfg, steps: int, int8: bool, beam: int):
+    """Exact kernel launches of one served batch of ``steps`` decode steps
+    (beam search, or greedy decoding at ``beam == 1``)."""
+    m = cfg.model
+    layer_step = (1 if m.fused_qkv else 3) + 3    # self q/k/v, self out, cross q, cross out
+    want = {k: 0 for k in TRAIN_STEP_LAUNCHES}
+    want.update({"stft_mel": 1, "beam_prune": steps if beam > 1 else 0,
+                 "lineage_attention": m.num_decoder_layers * steps,
+                 "flash_fwd": m.num_encoder_layers})
+    if int8:   # + the cross K and V projections of init_cache
+        want["int8_matmul"] = m.num_decoder_layers * (layer_step * steps + 2)
+        want["int8_ffn"] = m.num_decoder_layers * steps
+    return want
+
+
+def main_path(torch, dev, int8: bool = False):
     from speech_tranformer_pytorch_tpu_torch.kernels import interface
     from speech_tranformer_pytorch_tpu_torch.profile_decode import DECODE, smoke_batch
 
     # The batch profile_decode.py traces: base preset, seeded random
-    # weights, 8 int16 utterances of 4-6 s, beam 5, max_len 100.
-    cfg, params, rec, audio, lens = smoke_batch(dev)
+    # weights, 8 int16 utterances of 4-6 s, beam 5, max_len 100; with
+    # ``int8`` the int8 weights and int8 cross-K/V cache.
+    cfg, params, rec, audio, lens = smoke_batch(dev, int8=int8)
     warm = rec.decode_result(audio, lens, **DECODE)
     if not bool(torch.isfinite(warm.scores[:, 0]).all()):
         raise AssertionError(f"non-finite best scores {warm.scores[:, 0]}")
@@ -669,15 +847,30 @@ def main_path(torch, dev):
     v = cfg.model.vocab_size
     if len(hyps) != len(lens) or any(not 0 <= t < v or t == 2 for h in hyps for t in h):
         raise AssertionError(f"malformed hypotheses {hyps}")
-    want = {"stft_mel": 1, "beam_prune": steps,
-            "lineage_attention": cfg.model.num_decoder_layers * steps,
-            "flash_fwd": cfg.model.num_encoder_layers, "flash_bwd_dkv": 0,
-            "flash_bwd_dq": 0, "fused_adam": 0}
+    want = expected_serve_launches(cfg, steps, int8, DECODE["beam_size"])
     if steps <= 0 or counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     audio_s = float(lens.sum()) / cfg.features.sample_rate
-    emit({"main_path": {
+    greedy = {}
+    if int8:   # the same batch decoded greedily (beam 1), also with exact counts
+        decode = dict(DECODE, beam_size=1)
+        rec.decode_batch(audio, lens, **decode)
+        torch.cuda.synchronize()
+        interface.reset_launch_counts()
+        t0 = time.perf_counter()
+        ghyps = rec.decode_batch(audio, lens, **decode)
+        torch.cuda.synchronize()
+        gwall = time.perf_counter() - t0
+        gcounts = interface.launch_counts()
+        gwant = expected_serve_launches(cfg, rec.last_steps, int8, 1)
+        if rec.last_steps <= 0 or gcounts != gwant or len(ghyps) != len(lens):
+            raise AssertionError(f"greedy launch counts {gcounts}, expected {gwant}")
+        greedy = {"greedy": {"wall_s": gwall, "rtf": gwall / audio_s,
+                             "decode_steps": rec.last_steps, "launches": gcounts,
+                             "hyp_lens": [len(h) for h in ghyps]}}
+    emit({"int8_path" if int8 else "main_path": {**greedy,
         "preset": "base", "dtype": cfg.model.dtype, "utterances": len(lens),
+        "int8_weights": cfg.decode.int8_weights, "int8_kv_cache": cfg.decode.int8_kv_cache,
         "beam": DECODE["beam_size"], "max_len": DECODE["max_len"],
         "wall_s": wall, "audio_s": audio_s,
         "rtf": wall / audio_s, "decode_steps": steps,
@@ -686,46 +879,62 @@ def main_path(torch, dev):
     return counts, params, audio, lens
 
 
-def card_vs_cpu(torch, dev, params, audio, lens):
+def card_vs_cpu(torch, dev, params, audio, lens, int8: bool = False):
+    """float32 on 2 utterances, the kernels on the card against the plain
+    versions on the CPU: hypotheses identical, first-step logits within
+    1e-3. With ``int8``: the int8 weights and K/V cache, at beam 5 and at
+    beam 1 (greedy)."""
     from speech_tranformer_pytorch_tpu_torch.config import get_config
     from speech_tranformer_pytorch_tpu_torch.data.features import extract_features
-    from speech_tranformer_pytorch_tpu_torch.decoding import best_hypotheses
-    from speech_tranformer_pytorch_tpu_torch.profile_decode import DECODE
+    from speech_tranformer_pytorch_tpu_torch.profile_decode import DECODE, INT8
     from speech_tranformer_pytorch_tpu_torch.recognize import Recognizer
 
     cfg = get_config("base", **{"model.dtype": "float32",
-                                "features.output_dtype": "float32"})
-    beam, max_len = DECODE["beam_size"], DECODE["max_len"]
+                                "features.output_dtype": "float32",
+                                **(INT8 if int8 else {})})
+    max_len = DECODE["max_len"]
     lens2 = lens[:2]
     audio2 = audio[:2, :int(lens2.max())]
-    out = {}
-    for where in (dev, torch.device("cpu")):
-        rec = Recognizer(cfg, params, device=where)
-        result = rec.decode_result(audio2, lens2, **DECODE)
-        with torch.no_grad():
-            feats, flens = extract_features(audio2, lens2, cfg.features, device=where)
-            memory, mem_lens = rec.model.encode(feats, flens)
-            cache = rec.model.init_cache(memory, max_len, beam)
-            lineage = torch.arange(beam, dtype=torch.int32, device=where)[
-                None, :, None].expand(2, beam, max_len).contiguous()
-            sos = torch.full((2 * beam,), 1, dtype=torch.int32, device=where)
-            logits, _ = rec.model.decode_step(sos, 0, cache, mem_lens, beam, lineage)
-        out[where.type] = (best_hypotheses(result), result.scores.cpu(), logits.cpu())
-    (hyp_g, sc_g, lg_g), (hyp_c, sc_c, lg_c) = out["cuda"], out["cpu"]
-    logit_err = float((lg_g - lg_c).abs().max())
-    gaps = [float(sc_c[i, 0] - sc_c[i, 1]) for i in range(sc_c.shape[0])]
-    emit({"card_vs_cpu": {"hyps_equal": hyp_g == hyp_c, "first_step_logit_err": logit_err,
-                          "top2_score_gap_cpu": gaps, "hyp_lens": [len(h) for h in hyp_g],
-                          "score_err": float((sc_g - sc_c).abs().max())}})
-    if hyp_g != hyp_c:
-        raise AssertionError(f"card and CPU hypotheses differ: {hyp_g} vs {hyp_c}")
-    if not logit_err <= 1e-3:
-        raise AssertionError(f"first-step logits differ by {logit_err}")
+    report = {}
+    for beam in ((DECODE["beam_size"], 1) if int8 else (DECODE["beam_size"],)):
+        decode = dict(DECODE, beam_size=beam)
+        out = []
+        for where in (dev, torch.device("cpu")):
+            rec = Recognizer(cfg, params, device=where)
+            result = rec.decode_result(audio2, lens2, **decode)
+            hyps = rec.hypotheses(result)
+            with torch.no_grad():
+                feats, flens = extract_features(audio2, lens2, cfg.features, device=where)
+                memory, mem_lens = rec.model.encode(feats, flens)
+                cache = rec.model.init_cache(memory, max_len, beam, rec.int8_kv)
+                lineage = torch.arange(beam, dtype=torch.int32, device=where)[
+                    None, :, None].expand(2, beam, max_len).contiguous()
+                sos = torch.full((2 * beam,), 1, dtype=torch.int32, device=where)
+                logits, _ = rec.model.decode_step(sos, 0, cache, mem_lens, beam, lineage)
+            scores = getattr(result, "scores", None)
+            out.append((hyps, None if scores is None else scores.cpu(), logits.cpu()))
+        (hyp_g, sc_g, lg_g), (hyp_c, sc_c, lg_c) = out
+        logit_err = float((lg_g - lg_c).abs().max())
+        res = {"hyps_equal": hyp_g == hyp_c, "first_step_logit_err": logit_err,
+               "hyp_lens": [len(h) for h in hyp_g]}
+        if sc_c is not None:
+            res["top2_score_gap_cpu"] = [float(sc_c[i, 0] - sc_c[i, 1])
+                                         for i in range(sc_c.shape[0])]
+            res["score_err"] = float((sc_g - sc_c).abs().max())
+        report[f"beam_{beam}"] = res
+        if hyp_g != hyp_c:
+            raise AssertionError(f"beam {beam}: card and CPU hypotheses differ: "
+                                 f"{hyp_g} vs {hyp_c}")
+        if not logit_err <= 1e-3:
+            raise AssertionError(f"beam {beam}: first-step logits differ by {logit_err}")
+    emit({"int8_card_vs_cpu" if int8 else "card_vs_cpu":
+          report if int8 else report[f"beam_{DECODE['beam_size']}"]})
 
 
-PHASES = ("check_fbank", "check_beam_prune", "check_lineage", "check_flash",
-          "check_adam", "main_path", "card_vs_cpu", "train_path",
-          "train_card_vs_cpu", "overfit_anchor")
+CHECKS = ("check_fbank", "check_beam_prune", "check_lineage", "check_flash",
+          "check_adam", "check_int8_matmul", "check_int8_ffn")
+PHASES = CHECKS + ("main_path", "card_vs_cpu", "int8_path", "int8_card_vs_cpu",
+                   "train_path", "train_card_vs_cpu", "overfit_anchor")
 
 
 def main() -> int:
@@ -761,17 +970,21 @@ def main() -> int:
     emit({"build_s": time.perf_counter() - t0})
 
     recs = []
-    for name in PHASES[:5]:
+    for name in CHECKS:
         if name in phases:
             t0 = time.perf_counter()
             out = globals()[name](torch, dev)
             recs += out if isinstance(out, list) else [out]
             emit({"phase_s": {name: time.perf_counter() - t0}})
-    counts = {"serve": {}, "train": {}}
-    if "main_path" in phases:
-        counts["serve"], params, audio, lens = main_path(torch, dev)
-        if "card_vs_cpu" in phases:
-            card_vs_cpu(torch, dev, params, audio, lens)
+    counts = {"serve": {}, "serve_int8": {}, "train": {}}
+    for path, int8 in (("serve", False), ("serve_int8", True)):
+        name = "int8_path" if int8 else "main_path"
+        if name in phases:
+            t0 = time.perf_counter()
+            counts[path], params, audio, lens = main_path(torch, dev, int8=int8)
+            if ("int8_" if int8 else "") + "card_vs_cpu" in phases:
+                card_vs_cpu(torch, dev, params, audio, lens, int8=int8)
+            emit({"phase_s": {name: time.perf_counter() - t0}})
     if "train_path" in phases:
         counts["train"] = train_path(torch, dev)
     for name in ("train_card_vs_cpu", "overfit_anchor"):

@@ -86,25 +86,50 @@ def _entries(cfg: ModelConfig):
     return out
 
 
+def _leaf(params: dict, path) -> np.ndarray:
+    for key in path:
+        params = params[key]
+    return np.asarray(params)
+
+
+def _to_port_layout(x: np.ndarray, kind) -> np.ndarray:
+    if kind[0] == "dense":
+        return x.reshape(int(np.prod(x.shape[:kind[1]])), -1).T
+    if kind[0] == "bias":
+        return x.reshape(-1)
+    if kind[0] == "conv":
+        return x.transpose(3, 2, 0, 1)
+    return x
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig) -> StateDict:
     """flax param tree (numpy leaves) -> the port's float32 ``state_dict``."""
     params = tree.get("params", tree)
     sd: StateDict = {}
     for name, path, kind, shape in _entries(cfg):
-        x = params
-        for key in path:
-            x = x[key]
-        x = np.asarray(x)
+        x = _leaf(params, path)
         if x.shape != shape:
             raise ValueError(f"{'/'.join(path)}: shape {x.shape}, expected {shape}")
-        if kind[0] == "dense":
-            x = x.reshape(int(np.prod(shape[:kind[1]])), -1).T
-        elif kind[0] == "bias":
-            x = x.reshape(-1)
-        elif kind[0] == "conv":
-            x = x.transpose(3, 2, 0, 1)
-        sd[name] = _to_torch(x)
+        sd[name] = _to_torch(_to_port_layout(x, kind))
     return sd
+
+
+def quantized_from_jax(qparams: dict, scales: dict, cfg: ModelConfig):
+    """JAX ``quantize_params`` output ``(qparams, scales)`` (numpy leaves)
+    -> the port's ``(qparams, scales)`` as ``ops/quantize.quantize_params``
+    makes them: int8 leaves in the port's layout, each scale broadcast to
+    the JAX kernel shape and read off as one f32 value per output column
+    (per row for the embedding)."""
+    qp, sc = qparams.get("params", qparams), scales.get("params", scales)
+    out_q, out_s = params_from_jax(qp, cfg), {}
+    for name, path, kind, shape in _entries(cfg):
+        q = _leaf(qp, path)
+        if q.dtype != np.int8:
+            continue
+        s = np.broadcast_to(_leaf(sc, path).astype(np.float32), shape)
+        s = _to_port_layout(s, kind)          # output channels on axis 0
+        out_s[name] = torch.from_numpy(np.array(s.reshape(s.shape[0], -1)[:, 0]))
+    return out_q, out_s
 
 
 def _to_torch(x: np.ndarray) -> torch.Tensor:

@@ -58,11 +58,12 @@ def beam_search(
     beam_size: int,
     max_len: int,
     alpha: float = 1.0,
+    int8_kv: bool = False,
 ) -> BeamResult:
     b, k = memory.shape[0], beam_size
     dev = memory.device
     i32 = dict(dtype=torch.int32, device=dev)
-    cache = model.init_cache(memory, max_len, k)
+    cache = model.init_cache(memory, max_len, k, int8_kv)
 
     # Only beam 0 is live at step 0 (all beams would be identical).
     alive_scores = torch.tensor([0.0] + [NEG_INF] * (k - 1), device=dev).repeat(b, 1)
@@ -140,19 +141,25 @@ def beam_decode(
     beam_size: int,
     max_len: int,
     alpha: float = 1.0,
+    int8_kv: bool = False,
     device: DeviceLike = None,
 ) -> BeamResult:
     """Encode + beam search on ``device`` (CUDA unless the caller asks for
     the CPU); the model must already live there."""
+    memory, mem_lens = encode_on(model, feats, frame_lens, device)
+    return beam_search(model, memory, mem_lens, beam_size=beam_size,
+                       max_len=max_len, alpha=alpha, int8_kv=int8_kv)
+
+
+def encode_on(model: SpeechTransformer, feats, frame_lens, device: DeviceLike):
+    """Run the encoder on ``device``, where the model must already live."""
     dev = resolve_device(device)
     param = next(model.parameters())
     if param.device.type != dev.type:
         raise ValueError(f"model is on {param.device}, decoding on {dev}")
     feats = torch.as_tensor(feats).to(dev)
     frame_lens = torch.as_tensor(frame_lens).to(dev)
-    memory, mem_lens = model.encode(feats, frame_lens)
-    return beam_search(model, memory, mem_lens, beam_size=beam_size,
-                       max_len=max_len, alpha=alpha)
+    return model.encode(feats, frame_lens)
 
 
 def best_hypotheses(result: BeamResult) -> List[List[int]]:

@@ -13,6 +13,7 @@ from typing import Dict, List
 import torch
 
 from . import beam_prune, flash_attention as flash, fused_adam as adam
+from . import int8_ffn as ffn8, int8_matmul as mm8
 from . import lineage_attention as lineage, stft_mel
 
 _WRAPPERS = {
@@ -23,6 +24,8 @@ _WRAPPERS = {
     "flash_bwd_dkv": flash.flash_bwd_dkv_cuda,
     "flash_bwd_dq": flash.flash_bwd_dq_cuda,
     "fused_adam": adam.fused_adam_cuda,
+    "int8_matmul": mm8.int8_matmul_cuda,
+    "int8_ffn": ffn8.int8_ffn_cuda,
 }
 
 
@@ -103,6 +106,21 @@ def fused_adam(params: List[torch.Tensor], grads: List[torch.Tensor],
     fn = adam.fused_adam_cuda if _on_cuda(params[0]) else adam.adam_update_reference
     fn(params, grads, mus, nus, scalars, b1=b1, b2=b2, eps=eps,
        weight_decay=weight_decay)
+
+
+def int8_dense(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """[m, k] x [k, n] int8 -> [m, n] in x's dtype: ``(x @ wq) * scale``
+    with f32 accumulation (kernels/int8_matmul.py). Every int8 dense layer
+    comes here: there is no size gate."""
+    fn = mm8.int8_matmul_cuda if _on_cuda(x) else mm8.int8_matmul_reference
+    return fn(x, wq, scale)
+
+
+def int8_ffn(x, w1q, s1, b1, w2q, s2, b2) -> torch.Tensor:
+    """``relu((x @ w1q) * s1 + b1) @ w2q * s2 + b2`` in x's dtype, one
+    launch with the hidden kept on chip (kernels/int8_ffn.py)."""
+    fn = ffn8.int8_ffn_cuda if _on_cuda(x) else ffn8.int8_ffn_reference
+    return fn(x, w1q, s1, b1, w2q, s2, b2)
 
 
 def launch_counts() -> Dict[str, int]:

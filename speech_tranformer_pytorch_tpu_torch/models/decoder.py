@@ -7,8 +7,12 @@ Two modes: the teacher-forced ``forward`` and the one-token ``decode_step``
 over a KV cache. Cache layout per layer, for a step batch of B·K rows:
   self_k/self_v   : [B·K, max_len, H, D], written at ``index`` in place
   cross_k/cross_v : [B, H, S, D] head-major, beam-invariant, built once
-                    (cross_k in f32, the dtype its scores are taken in)
+                    (cross_k in f32, the dtype its scores are taken in);
+                    with ``int8_kv`` both int8, with per-(B, H, 1, D)
+                    scales ``cross_k_scale``/``cross_v_scale``
 and, with the tied output projection, ``cache["logits"]["table_f32"]``.
+For int8 serving (``ops/quantize.decode_model``) ``Decoder.use_int8`` swaps
+the dense layers for ``Int8Linear`` and the embedding for ``Int8Embedding``.
 The self cache is never reordered by the beam search: self-attention reads
 it through the lineage table (``kernels/interface.lineage_attention``).
 """
@@ -25,7 +29,8 @@ from ..config import ModelConfig
 from ..kernels import interface
 from ..ops import masks as mask_ops
 from ..ops.dropout import dropout
-from .modules import FeedForward, LayerNorm, MultiHeadAttention, PositionalEncoding
+from .modules import (FeedForward, Int8Embedding, Int8Linear, LayerNorm,
+                      MultiHeadAttention, PositionalEncoding)
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
@@ -65,18 +70,32 @@ class DecoderLayer(nn.Module):
 
     # ----- step decoding ---------------------------------------------------
 
-    def init_layer_cache(self, memory: torch.Tensor, batch: int,
-                         max_len: int) -> Dict[str, torch.Tensor]:
-        """``memory`` is the untiled [B,S,d]; ``batch`` is the step batch B·K."""
+    def init_layer_cache(self, memory: torch.Tensor, batch: int, max_len: int,
+                         int8_kv: bool = False) -> Dict[str, torch.Tensor]:
+        """``memory`` is the untiled [B,S,d]; ``batch`` is the step batch B·K.
+        ``int8_kv`` stores cross K/V as int8 with f32-derived scales per
+        (B, H, 1, D), reduced over every frame, padded ones included (JAX
+        ``decoder.py:110-142``); the scales are kept in the compute dtype,
+        the dtype each step dequantizes in."""
         ck, cv = self.cross_attn.project_kv(memory)            # [B,S,H,D]
         h, d = ck.shape[-2:]
         zeros = torch.zeros((batch, max_len, h, d), dtype=memory.dtype,
                             device=memory.device)
+        cache = {"self_k": zeros, "self_v": torch.zeros_like(zeros)}
+        ck, cv = ck.transpose(1, 2), cv.transpose(1, 2)        # [B,H,S,D]
+        if int8_kv:
+            for name, t in (("cross_k", ck), ("cross_v", cv)):
+                t = t.float()
+                s = torch.amax(t.abs(), dim=2, keepdim=True) / 127.0
+                s = torch.where(s == 0.0, torch.ones_like(s), s)
+                cache[name] = torch.clamp(torch.round(t / s), -127, 127).to(torch.int8)
+                cache[name + "_scale"] = s.to(memory.dtype)
+            return cache
         # cross_k is kept in f32: every step takes its scores in f32, and
         # the compute-dtype values are exact there, so it is cast once here.
-        return {"self_k": zeros, "self_v": torch.zeros_like(zeros),
-                "cross_k": ck.transpose(1, 2).float().contiguous(),  # [B,H,S,D]
-                "cross_v": cv.transpose(1, 2).contiguous()}
+        cache["cross_k"] = ck.float().contiguous()
+        cache["cross_v"] = cv.contiguous()
+        return cache
 
     def decode_step(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                     index: int, cross_bias: torch.Tensor, beam_width: int,
@@ -97,9 +116,12 @@ class DecoderLayer(nn.Module):
             # Fold the K beams into query rows: the cross cache is
             # beam-invariant, so it is read once per utterance.
             bk, _, d = h.shape
+            ck, cv = cache["cross_k"], cache["cross_v"]
+            if ck.dtype == torch.int8:      # per-step dequant in the compute dtype
+                ck = ck.to(h.dtype) * cache["cross_k_scale"]
+                cv = cv.to(h.dtype) * cache["cross_v_scale"]
             out = self.cross_attn.attend_bhsd(
-                h.reshape(bk // beam_width, beam_width, d), cache["cross_k"],
-                cache["cross_v"], cross_bias)
+                h.reshape(bk // beam_width, beam_width, d), ck, cv, cross_bias)
             return out.reshape(bk, 1, d)
 
         if self.normalize_before:
@@ -124,6 +146,38 @@ class Decoder(nn.Module):
         self.out_proj = (None if cfg.share_embedding else
                          nn.Linear(cfg.d_model, cfg.vocab_size, bias=False))
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype (the final LayerNorm always stays float)."""
+        return self.final_norm.weight.dtype
+
+    def use_int8(self, quantized: Dict[str, Tuple[torch.Tensor, torch.Tensor]]) -> None:
+        """Swap layers for int8 ones. ``quantized`` maps a parameter name
+        (``layers.0.ffn.fc1.weight``, ``embed.weight``, ...) to its int8
+        values and f32 scale, as ``ops/quantize.quantize_params`` makes
+        them; biases come from the layers being replaced. Call after the
+        model is cast to its compute dtype."""
+        dt = self.dtype
+        for name, (q, s) in quantized.items():
+            path, leaf = name.rsplit(".", 1)
+            old = self.get_submodule(path)
+            if leaf != "weight":
+                raise ValueError(f"{name}: only weights are quantized")
+            if isinstance(old, nn.Embedding):
+                new = Int8Embedding(q, s, dt)
+            elif isinstance(old, nn.Linear):
+                new = Int8Linear(q, s, old.bias, dt)
+            else:
+                raise ValueError(f"{name}: no int8 form of {type(old).__name__}")
+            parent, _, attr = path.rpartition(".")
+            setattr(self.get_submodule(parent) if parent else self, attr, new)
+
+    def _table(self) -> torch.Tensor:
+        """The tied [V, d] table in the compute dtype."""
+        if isinstance(self.embed, Int8Embedding):
+            return self.embed.table()
+        return self.embed.weight
+
     def _logits(self, x: torch.Tensor,
                 table_f32: Optional[torch.Tensor] = None) -> torch.Tensor:
         """float32 logits: compute-dtype operands, f32 accumulation and
@@ -131,7 +185,7 @@ class Decoder(nn.Module):
         the tied embedding already cast to f32, as ``init_cache`` keeps it."""
         if self.out_proj is None:
             if table_f32 is None:
-                table_f32 = self.embed.weight.float()
+                table_f32 = self._table().float()
             return torch.matmul(x.float(), table_f32.t())
         return self.out_proj(x).float()
 
@@ -155,17 +209,18 @@ class Decoder(nn.Module):
     # ----- step decoding ---------------------------------------------------
 
     def init_cache(self, memory: torch.Tensor, max_len: int,
-                   beam_width: int = 1) -> Cache:
-        """KV cache for B·beam_width step rows; ``memory`` is untiled [B,S,d]."""
+                   beam_width: int = 1, int8_kv: bool = False) -> Cache:
+        """KV cache for B·beam_width step rows; ``memory`` is untiled [B,S,d].
+        ``int8_kv``: int8 cross K/V (``DecoderLayer.init_layer_cache``)."""
         if max_len > self.pos_enc.max_len:
             raise ValueError(f"max_len {max_len} exceeds the positional table "
                              f"({self.pos_enc.max_len})")
         b = memory.shape[0] * beam_width
-        mem = memory.to(self.embed.weight.dtype)
-        cache = {f"layer_{i}": layer.init_layer_cache(mem, b, max_len)
+        mem = memory.to(self.dtype)
+        cache = {f"layer_{i}": layer.init_layer_cache(mem, b, max_len, int8_kv)
                  for i, layer in enumerate(self.layers)}
         if self.out_proj is None:   # cast the tied projection once, not per step
-            cache["logits"] = {"table_f32": self.embed.weight.float()}
+            cache["logits"] = {"table_f32": self._table().float()}
         return cache
 
     def decode_step(self, tokens: torch.Tensor, index: int, cache: Cache,

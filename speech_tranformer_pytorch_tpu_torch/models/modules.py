@@ -164,8 +164,69 @@ class MultiHeadAttention(nn.Module):
                            deterministic=deterministic, q=q)
 
 
+class Int8Linear(nn.Module):
+    """An int8-weight dense layer for serving: the counterpart of the int8
+    branch of the JAX ``QuantDenseGeneral`` (``models/modules.py:285-306``)
+    at the kernel path, which the port takes for every size.
+
+    Holds the int8 kernel in the JAX kernel layout [in, out], an f32 scale
+    per output column, and the bias in the compute dtype. ``forward`` runs
+    ``interface.int8_dense`` (f32 accumulate, f32 scale), casts the result
+    to the compute dtype and then adds the bias in that dtype, as JAX does.
+    ``bias_f32`` is the same bias in f32 for the fused int8 feed-forward."""
+
+    def __init__(self, weight_q: torch.Tensor, scale: Optional[torch.Tensor],
+                 bias: Optional[torch.Tensor], dtype: torch.dtype):
+        super().__init__()
+        if scale is None:
+            raise ValueError("an int8 weight needs its per-column scale "
+                             "(ops.quantize.quantize_params makes both)")
+        out_features = weight_q.shape[0]
+        if weight_q.dtype != torch.int8 or tuple(scale.shape) != (out_features,):
+            raise ValueError(f"int8 [out, in] weight and f32 [out] scale expected, "
+                             f"got {weight_q.dtype} {tuple(weight_q.shape)} and "
+                             f"{tuple(scale.shape)}")
+        self.dtype = dtype
+        self.register_buffer("weight_q", weight_q.t().contiguous())     # [in, out]
+        self.register_buffer("scale", scale.float().contiguous())
+        if bias is None:
+            self.bias = self.bias_f32 = None
+        else:
+            self.register_buffer("bias", bias.to(dtype))
+            self.register_buffer("bias_f32", self.bias.float())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, n = self.weight_q.shape
+        out = interface.int8_dense(x.reshape(-1, k), self.weight_q, self.scale)
+        out = out.to(self.dtype).reshape(x.shape[:-1] + (n,))
+        return out if self.bias is None else out + self.bias
+
+
+class Int8Embedding(nn.Module):
+    """Per-row int8 embedding (``quantize_params(embedding_rows=True)``):
+    the token gather dequantizes its rows as ``q.to(dt) * s.to(dt)``, and
+    ``table()`` is the whole [V, d] table in the compute dtype for the
+    tied output projection (JAX ``decoder.py:284-319``)."""
+
+    def __init__(self, weight_q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype):
+        super().__init__()
+        if weight_q.dtype != torch.int8 or tuple(scale.shape) != (weight_q.shape[0],):
+            raise ValueError("int8 [V, d] table and f32 [V] row scale expected")
+        self.dtype = dtype
+        self.register_buffer("weight_q", weight_q.contiguous())
+        self.register_buffer("scale", scale.float().contiguous())
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        rows = self.weight_q[tokens].to(self.dtype)
+        return rows * self.scale[tokens][..., None].to(self.dtype)
+
+    def table(self) -> torch.Tensor:
+        return self.weight_q.to(self.dtype) * self.scale[:, None].to(self.dtype)
+
+
 class FeedForward(nn.Module):
-    """Linear → ReLU → dropout → Linear."""
+    """Linear → ReLU → dropout → Linear; with both layers int8
+    (``Int8Linear``), one fused ``interface.int8_ffn`` launch."""
 
     def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0):
         super().__init__()
@@ -175,9 +236,25 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        int8 = [isinstance(fc, Int8Linear) for fc in (self.fc1, self.fc2)]
+        if any(int8):
+            return self._int8(x, int8)
         h = dropout(F.relu(self.fc1(x)), self.dropout_rate,
                     deterministic=deterministic, generator=generator)
         return self.fc2(h)
+
+    def _int8(self, x: torch.Tensor, int8) -> torch.Tensor:
+        """The int8 branch (JAX ``modules.py:600-627``): serving only, so no
+        dropout; biases enter the kernel in f32, the result is cast to the
+        compute dtype."""
+        fc1, fc2 = self.fc1, self.fc2
+        if not all(int8) or fc1.bias is None or fc2.bias is None:
+            raise ValueError("the int8 feed-forward needs both layers int8 with "
+                             "their scales and biases (ops.quantize.decode_model)")
+        k, n = fc1.weight_q.shape[0], fc2.weight_q.shape[1]
+        out = interface.int8_ffn(x.reshape(-1, k), fc1.weight_q, fc1.scale, fc1.bias_f32,
+                                 fc2.weight_q, fc2.scale, fc2.bias_f32)
+        return out.to(fc2.dtype).reshape(x.shape[:-1] + (n,))
 
 
 class LayerNorm(nn.LayerNorm):

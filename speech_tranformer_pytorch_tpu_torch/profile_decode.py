@@ -1,9 +1,10 @@
 """Where the time of one served batch goes, on a CUDA card.
 
-    python -m speech_tranformer_pytorch_tpu_torch.profile_decode
+    python -m speech_tranformer_pytorch_tpu_torch.profile_decode [--int8]
 
 Runs the smoke main path (``smoke_batch``: ``base`` preset, seeded random
-weights, 8 int16 utterances of 4-6 s, beam 5, max_len 100) once to warm
+weights, 8 int16 utterances of 4-6 s, beam 5, max_len 100; with ``--int8``
+int8 weights and an int8 cross-K/V cache) once to warm
 up, once timed, then once under ``torch.profiler``. Prints one JSON line:
 the wall time, the device's busy time (union of kernel intervals) and idle
 share, kernel launches per decode step, and the kernels that take the most
@@ -28,6 +29,7 @@ from .models import SpeechTransformer
 from .recognize import Recognizer
 
 DECODE = dict(beam_size=5, max_len=100, alpha=1.0)
+INT8 = {"decode.int8_weights": True, "decode.int8_kv_cache": True}
 
 
 class SmokeBatch(NamedTuple):
@@ -43,11 +45,12 @@ def smoke_audio():
     return make_utterances(8, min_seconds=4.0, max_seconds=6.0, seed=0)
 
 
-def smoke_batch(device: DeviceLike = None) -> SmokeBatch:
+def smoke_batch(device: DeviceLike = None, *, int8: bool = False) -> SmokeBatch:
     """The main path's batch: the ``base`` preset with seeded random
     weights (generator seed 0) and ``smoke_audio``, served by a
-    ``Recognizer`` on ``device``; decode it with ``DECODE``."""
-    cfg = get_config("base")
+    ``Recognizer`` on ``device`` (with ``int8``: int8 weights and int8
+    cross-K/V cache); decode it with ``DECODE``."""
+    cfg = get_config("base", **(INT8 if int8 else {}))
     params = SpeechTransformer(cfg.model).init_weights(
         torch.Generator().manual_seed(0)).state_dict()
     audio, lens = smoke_audio()
@@ -69,10 +72,16 @@ def _busy_us(intervals) -> float:
 
 
 def main() -> None:
+    import argparse
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batch = smoke_batch()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 weights and int8 cross-K/V cache")
+    int8 = ap.parse_args().int8
+    batch = smoke_batch(int8=int8)
     rec = batch.recognizer
     rec.decode_batch(batch.audio, batch.lens, **DECODE)
     torch.cuda.synchronize()
@@ -97,7 +106,7 @@ def main() -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     steps = rec.last_steps
     print(json.dumps({"profile": {
-        "device": torch.cuda.get_device_name(0),
+        "device": torch.cuda.get_device_name(0), "int8": int8,
         "wall_s": wall_plain, "wall_s_profiled": wall_prof, "decode_steps": steps,
         "device_events": len(kernels),
         "launches_per_step": len(kernels) / max(steps, 1),

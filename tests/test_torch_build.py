@@ -37,7 +37,8 @@ def test_ctypes_signature_matches_c_source(name):
 def test_every_source_is_built_for_sm_90a():
     srcs = _build._sources()
     assert {os.path.basename(s) for s in srcs} >= {
-        "stft_mel.cu", "beam_prune.cu", "lineage_attention.cu"}
+        "stft_mel.cu", "beam_prune.cu", "lineage_attention.cu", "flash_attention.cu",
+        "fused_adam.cu", "int8_matmul.cu", "int8_ffn.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert len(_build._digest(srcs)) == 16
 
