@@ -9,7 +9,9 @@ Phases (any failure exits non-zero before the final line):
      and check each against its plain PyTorch version on the card, at the
      main paths' shapes, with timings (CUDA events) and the roofline bound:
      fbank, beam prune, lineage attention (beam 5 and K = 1), flash
-     attention forward, dK/dV and dQ (``check_flash``), the fused Adam
+     attention forward, dK/dV and dQ (``check_flash``: the train shapes,
+     zero-length rows, D 20, T' 750 and D 128, causal and not, and the
+     bf16 backward bit-identical on a second call), the fused Adam
      (``check_adam``), the int8 matmul (``check_int8_matmul``) and the
      fused int8 feed-forward with its determinism (``check_int8_ffn``);
   3. the serving main path: ``Recognizer.decode_batch`` at the ``base``
@@ -250,8 +252,11 @@ def check_lineage(torch, dev):
 
 
 # Flash attention: the train path's three shapes (B 64, H 8, D 64; encoder
-# T' 99-149, targets 11-31 of U 32), plus a zero-length row and ragged
-# tiles. Tolerances: f32 as the JAX goldens (tests/test_flash_attention.py:
+# T' 99-149, targets 11-31 of U 32), a zero-length row and ragged tiles,
+# D 20 (off the 16-byte grid: the bf16 backward reads a padded copy),
+# the `large` preset's 3000-frame buckets after 4x subsampling (T' 750,
+# many tiles a block) and the `sharded` preset's head (D 128), causal and
+# not. Tolerances: f32 as the JAX goldens (tests/test_flash_attention.py:
 # 2e-3 forward, 5e-3 gradients); bf16 2e-2 of each tensor's largest value
 # plus 2e-2 relative, because the bf16 kernels round p (forward and
 # backward) and dS to bf16 before their tensor-core products, at other
@@ -259,6 +264,7 @@ def check_lineage(torch, dev):
 # output to bf16 (a relative step of 2^-8).
 FLASH_TOL = {"float32": ((2e-3, 2e-3), (5e-3, 5e-3)),
              "bfloat16": ((2e-2, 2e-2), (2e-2, 2e-2))}
+TRAIN_SHAPES = ("encoder_self", "decoder_self", "cross")
 
 
 def _flash_cases(torch):
@@ -268,15 +274,24 @@ def _flash_cases(torch):
     dec = torch.randint(11, 32, (b,), generator=g, dtype=torch.int32)
     enc[0], dec[0] = 149, 32                    # the padded widths are reached
     odd = torch.tensor([0, 77, 5], dtype=torch.int32)
-    # name, batch, Tq, Tk, kv_lengths, causal, q/k/v from one fused projection
-    return [("encoder_self", b, 149, 149, enc, False, True),
-            ("decoder_self", b, 32, 32, dec, True, True),
-            ("cross", b, 32, 149, enc, False, False),
-            ("zero_len_ragged", 3, 70, 77, odd, False, False),
-            ("zero_len_causal", 3, 77, 77, odd, True, True)]
+    long = torch.tensor([750, 611, 402, 97], dtype=torch.int32)
+    wide = torch.randint(99, 150, (8,), generator=g, dtype=torch.int32)
+    wide[0] = 149
+    # name, batch, Tq, Tk, kv_lengths, causal, q/k/v from one fused
+    # projection, heads, head_dim
+    return [("encoder_self", b, 149, 149, enc, False, True, 8, 64),
+            ("decoder_self", b, 32, 32, dec, True, True, 8, 64),
+            ("cross", b, 32, 149, enc, False, False, 8, 64),
+            ("zero_len_ragged", 3, 70, 77, odd, False, False, 8, 64),
+            ("zero_len_causal", 3, 77, 77, odd, True, True, 8, 64),
+            ("narrow_head", 3, 70, 77, odd, True, False, 2, 20),   # the aligned copy
+            ("long", 4, 750, 750, long, False, True, 12, 64),
+            ("long_causal", 4, 750, 750, long, True, True, 12, 64),
+            ("wide_head", 8, 149, 149, wide, False, True, 16, 128),
+            ("wide_head_causal", 8, 149, 149, wide, True, True, 16, 128)]
 
 
-def _flash_inputs(torch, dev, dtype, b, tq, tk, fused, h=8, d=64):
+def _flash_inputs(torch, dev, dtype, b, tq, tk, fused, h, d):
     """[B, H, T, D] views of [B, T, H, D] storage (of one [B, T, 3, H, D]
     projection when ``fused``), as the model hands them over."""
     g = torch.Generator(device=dev).manual_seed(b * 1000 + tq * 10 + tk)
@@ -302,12 +317,12 @@ def check_flash(torch, dev):
     from torch.nn import functional as F
 
     per_shape = {}
-    for name, b, tq, tk, lens_cpu, causal, fused in _flash_cases(torch):
+    for name, b, tq, tk, lens_cpu, causal, fused, h, d in _flash_cases(torch):
         lens = lens_cpu.to(dev)
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype)[6:]
             (fa_tol, fr_tol), (ga_tol, gr_tol) = FLASH_TOL[dname]
-            q, k, v, do = _flash_inputs(torch, dev, dtype, b, tq, tk, fused)
+            q, k, v, do = _flash_inputs(torch, dev, dtype, b, tq, tk, fused, h, d)
             o, lse = fa.flash_fwd_cuda(q, k, v, lens, causal=causal)
             o_r, lse_r = fa.flash_fwd_reference(q, k, v, lens, causal=causal)
             di = (o_r.float() * do.float()).sum(-1)
@@ -333,16 +348,23 @@ def check_flash(torch, dev):
                 errs[gname] = check_close(f"{tag}.{gname}", got, want,
                                           ga_tol * (scale if dname == "bfloat16" else 1.0),
                                           gr_tol)
+            timed = dtype == torch.bfloat16 and name in TRAIN_SHAPES
+            if timed:   # no atomics: a second call gives the same bits
+                dk2, dv2 = fa.flash_bwd_dkv_cuda(q, k, v, do, lse_r, di, lens, causal=causal)
+                dq2 = fa.flash_bwd_dq_cuda(q, k, v, do, lse_r, di, lens, causal=causal)
+                if not all(torch.equal(x, y) for x, y in ((dk, dk2), (dv, dv2), (dq, dq2))):
+                    raise AssertionError(f"{tag}: dK/dV/dQ differ on a second call")
+                errs["bwd_bit_identical_on_second_call"] = True
             emit({"check": {"name": tag, "max_abs_err": errs}})
-            if dtype != torch.bfloat16 or name.startswith("zero"):
+            if not timed:
                 continue
             # Timed at the train path's dtype and shapes.
             keep = fa._keep_mask(tq, tk, lens, causal)
             esz = q.element_size()
-            pairs = 8 * _pairs(tq, lens_cpu, causal)
-            io_q = b * 8 * tq * 64 * esz          # one [B, H, Tq, D] tensor
-            io_k = b * 8 * tk * 64 * esz
-            stat = b * 8 * tq * 4                 # one f32 [B, H, Tq] tensor
+            pairs = h * _pairs(tq, lens_cpu, causal)
+            io_q = b * h * tq * d * esz           # one [B, H, Tq, D] tensor
+            io_k = b * h * tk * d * esz
+            stat = b * h * tq * 4                 # one f32 [B, H, Tq] tensor
             qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
             o_lib = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=keep)
             rec = {
@@ -352,19 +374,19 @@ def check_flash(torch, dev):
                         q, k, v, lens, causal=causal)),
                     library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
                         q, k, v, attn_mask=keep)),
-                    nbytes=2 * io_q + 2 * io_k + stat, flops=4 * 64 * pairs),
+                    nbytes=2 * io_q + 2 * io_k + stat, flops=4 * d * pairs),
                 "flash_bwd_dkv": dict(
                     ms=device_ms(torch, lambda: fa.flash_bwd_dkv_cuda(
                         q, k, v, do, lse_r, di, lens, causal=causal)),
                     plain_ms=device_ms(torch, lambda: fa.flash_bwd_dkv_reference(
                         q, k, v, do, lse_r, di, lens, causal=causal)),
-                    nbytes=2 * io_q + 4 * io_k + 2 * stat, flops=8 * 64 * pairs),
+                    nbytes=2 * io_q + 4 * io_k + 2 * stat, flops=8 * d * pairs),
                 "flash_bwd_dq": dict(
                     ms=device_ms(torch, lambda: fa.flash_bwd_dq_cuda(
                         q, k, v, do, lse_r, di, lens, causal=causal)),
                     plain_ms=device_ms(torch, lambda: fa.flash_bwd_dq_reference(
                         q, k, v, do, lse_r, di, lens, causal=causal)),
-                    nbytes=3 * io_q + 2 * io_k + 2 * stat, flops=6 * 64 * pairs),
+                    nbytes=3 * io_q + 2 * io_k + 2 * stat, flops=6 * d * pairs),
             }
             # SDPA's autograd backward gives dq, dk and dv in one call: the
             # library time of both backward kernels together.
@@ -379,7 +401,7 @@ def check_flash(torch, dev):
                 r["max_abs_err"] = errs["o"] if kname == "flash_fwd" else max(
                     errs[x] for x in (("dk", "dv") if kname == "flash_bwd_dkv" else ("dq",)))
             per_shape[name] = rec
-            emit({"check": {"name": f"flash_timing[{name}]", "shape": [b, 8, tq, tk, 64],
+            emit({"check": {"name": f"flash_timing[{name}]", "shape": [b, h, tq, tk, d],
                             "causal": causal, **rec}})
     # The kernels line reports the encoder self-attention shape; each train
     # step runs every shape 6 times.

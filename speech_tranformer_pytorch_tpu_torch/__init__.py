@@ -5,8 +5,10 @@ reference; this package imports nothing of it (nor JAX). Module names
 mirror the JAX package's so each counterpart is easy to find. Entry points
 (``recognize.Recognizer``, ``decoding.beam_decode``,
 ``data.features.extract_features``) run on CUDA unless the caller passes
-``device="cpu"``; the three hand-written Hopper kernels live under
-``csrc/`` and are dispatched by ``kernels/interface.py``.
+``device="cpu"``; the nine hand-written Hopper kernels (fbank, beam prune,
+lineage attention, flash attention forward, dK/dV and dQ, fused Adam, int8
+matmul, fused int8 feed-forward) live under ``csrc/`` and are dispatched
+by ``kernels/interface.py``.
 """
 
 from . import config

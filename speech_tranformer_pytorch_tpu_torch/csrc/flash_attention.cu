@@ -20,24 +20,48 @@
 // Design. The TPU grid walked the kv axis (forward, dQ) or the q axis
 // (dKV) in order and carried its sums in scratch; here one block owns one
 // tile of the other axis and walks that axis in a loop, so blocks share no
-// state. Tiles are staged in shared memory; ragged edges are zero-filled on
-// load and masked in the scores; whole tiles past kv_len or above the
-// causal diagonal are never visited. Products run on the tensor cores
-// through WMMA (bf16 in, f32 accumulate) for bf16 inputs and as f32 FMAs
-// for f32 inputs. For bf16 the softmax weights p (forward and backward)
-// and ds are rounded to bf16 before their products, as the TPU forward
-// rounds p before its PV product.
+// state and no output element is written by two blocks (no atomics: a
+// second call gives the same bits). Ragged edges are zero-filled on load
+// and masked in the scores; whole tiles past kv_len or above the causal
+// diagonal are never visited. For bf16 the softmax weights p (forward and
+// backward) and ds are rounded to bf16 before their products, as the TPU
+// forward rounds p before its PV product.
+//
+// Forward (bf16 and f32) and the f32 backward: 128-thread blocks, tiles
+// staged in shared memory, products through WMMA (bf16 in, f32
+// accumulate) for bf16 and as f32 FMAs for f32.
+//
+// bf16 backward (Hopper): one warpgroup per block, 64-row tiles. The dK/dV
+// kernel keeps its K and V tiles and streams Q, dO, lse and di; the dQ
+// kernel keeps Q and dO and streams K and V; the stream runs through a
+// ring of three stages (two at D = 128) in shared memory filled by
+// cp.async, so the next tiles' copies run under this tile's products. Every product is a wgmma
+// (hopper.cuh): S (or Sᵀ) and dP (or dPᵀ) with both operands in shared
+// memory, f32 accumulators in registers; p and ds are computed, masked and
+// rounded to bf16 in those registers and fed straight back as the A
+// operand of dV += Pᵀ dO, dK += dSᵀ Q and dQ += dS K, whose f32
+// accumulators stay in registers for the whole loop. Each gradient tile is
+// written once, through a staging tile, with 16-byte stores. These
+// kernels take D up to 128 padded to 64 or 128 columns, rows that start
+// 16-byte aligned, and D a multiple of 8 or rows zero-padded to one (the
+// wrapper copies other inputs; `vec` is not read).
 //
 // What bounds it on an H100: at the train path's shapes (T' ~ 150, D = 64)
-// the bound is bytes (q, k, v, o, lse once); the kernels are latency and
-// shared-memory bound far above it — one 128-thread block per tile, no
-// pipelining of the tile loads (wgmma and TMA are later work).
+// the bound is bytes (each input read once, each output written once).
+// The forward is latency and shared-memory bound far above it (one
+// 128-thread block per tile, no pipelining; wgmma and TMA are later work).
+// The bf16 backward computes S, dP and exp for every tile pair in both
+// kernels (7 products a pair where the gradients need 5) and rereads the
+// streamed tiles from L2 once per owned tile; one warpgroup a
+// block waits on each product before the softmax, and the softmax before
+// the next products, so several blocks per SM hide each other's waits.
 #include <cuda_bf16.h>
 #include <mma.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -259,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   }
 }
 
-// ------------------------------------------------------ backward: shared
+// ------------------------------------------- backward, f32: shared helpers
 // For one (q tile, kv tile) pair: S = Q K^T, dP = dO V^T, then
 // P = exp(S*scale - lse) on kept pairs (0 elsewhere) and dS = P (dP - di).
 // P and dS are written in T for the following products (Pt may be null).
@@ -295,7 +319,7 @@ __device__ void load_stats(const Params& p, float* lse_s, float* di_s, int b,
   }
 }
 
-// ---------------------------------------------------------- backward dKV
+// ----------------------------------------------------- backward dKV, f32
 template <typename T, int BQ, int BK>
 __host__ __device__ size_t dkv_smem(int Dp) {
   return sizeof(T) * (size_t)(2 * BK + 2 * BQ) * ld_t(Dp)   // K, V, Q, dO
@@ -357,7 +381,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
-// ----------------------------------------------------------- backward dQ
+// ------------------------------------------------------ backward dQ, f32
 template <typename T, int BQ, int BK>
 __host__ __device__ size_t dq_smem(int Dp) {
   return sizeof(T) * (size_t)(2 * BQ + 2 * BK) * ld_t(Dp)   // Q, dO, K, V
@@ -407,6 +431,295 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   }
 }
 
+// ------------------------------------------------ backward, bf16 (Hopper)
+// One warpgroup per block; every tile has kRows rows, the M of wgmma. A
+// tile of kD (64 or 128) columns is laid out as in hopper.cuh.
+constexpr int kRows = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kThreads == 2 * kRows, "one thread copies each lse and di value");
+
+// Shared memory, from a 1024-byte aligned base: the block's own two tiles,
+// the ring of kStages x 2 streamed tiles, then (dK/dV) lse and di of each
+// stage. Three stages at D = 64 (68 KB, three blocks an SM); two at
+// D = 128, where a third would leave one block an SM and spill dK/dV's
+// registers (measured in PERF.md).
+template <int kD>
+struct BwdSmem {
+  static constexpr int kStages = kD == 64 ? 3 : 2;
+  static constexpr uint32_t kTile = kRows * kD * 2;
+  static constexpr uint32_t kRing = 2 * kTile;
+  static constexpr uint32_t kStats = kRing + kStages * 2 * kTile;
+  static constexpr uint32_t kBytes = kStats + 2 * kStages * kRows * 4 + 1024;  // + alignment
+};
+
+// Starts the copy of rows row0 .. row0 + kRows - 1 of one (b, h) slice into
+// the swizzled tile at `dst`; rows at or past `limit` and chunks past D are
+// zero-filled.
+template <int kD>
+__device__ __forceinline__ void copy_tile(uint32_t dst, const Params& p, int which,
+                                          const void* src_v, int b, int h, int row0,
+                                          int limit) {
+  const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(src_v);
+  constexpr int kChunks = kD / 8;
+  const int chunks = (p.D + 7) / 8;
+#pragma unroll
+  for (int n = 0; n < kRows * kChunks / kThreads; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = row0 + r < limit && c < chunks;
+    const __nv_bfloat16* from = ok ? src + offset(p, which, b, h, row0 + r) + 8 * c : src;
+    st::cp_async_16(dst + st::sw128_offset(r, c, kRows), from, ok);
+  }
+}
+
+// Starts the copy of lse and di of query rows q0 .. q0 + kRows - 1 (0 past Tq).
+__device__ __forceinline__ void copy_stats(uint32_t lse_dst, uint32_t di_dst,
+                                           const Params& p, int b, int h, int q0) {
+  const int r = threadIdx.x % kRows;
+  const bool is_lse = threadIdx.x < kRows, ok = q0 + r < p.Tq;
+  const float* src = is_lse ? p.lse_in : p.di;
+  const size_t at = ((size_t)b * p.H + h) * p.Tq + q0 + r;
+  st::cp_async_4((is_lse ? lse_dst : di_dst) + 4 * r, ok ? src + at : src, ok);
+}
+
+// Writes this warpgroup's kRows x kD f32 accumulator, times `scale`, as bf16
+// rows row0 .. of output `which` (rows past `limit`, chunks past D are left
+// out): rounded into the staging tile `stage`, then stored 16 bytes a thread.
+template <int kD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* stage, const float (&acc)[kD / 2],
+                                           float scale, const Params& p, int which,
+                                           void* dst_v, int b, int h, int row0, int limit) {
+  constexpr int kLd = kD + 8;   // staggers the banks of the fragment writes
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kD / 2; i += 2) {
+    const int r = 16 * warp + (lane >> 2) + 8 * ((i >> 1) & 1);
+    const int c = 8 * (i >> 2) + 2 * (lane & 3);
+    *reinterpret_cast<__nv_bfloat162*>(stage + r * kLd + c) =
+        __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+  }
+  __syncthreads();
+  __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(dst_v);
+  const int chunks = (p.D + 7) / 8;
+  for (int i = threadIdx.x; i < kRows * chunks; i += kThreads) {
+    const int r = i / chunks, c = i - r * chunks;
+    if (row0 + r < limit)
+      *reinterpret_cast<uint4*>(dst + offset(p, which, b, h, row0 + r) + 8 * c) =
+          *reinterpret_cast<const uint4*>(stage + r * kLd + 8 * c);
+  }
+}
+
+// 1024-byte aligned start of the dynamic shared memory (generic pointer).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (st::smem_u32(raw) & 1023)) & 1023);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(Params p) {
+  using L = BwdSmem<kD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = st::smem_u32(smem);
+  const uint32_t Ks = base, Vs = base + L::kTile;
+  const float* stats = reinterpret_cast<const float*>(smem + L::kStats);
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kv_len = clamp_len(p, b);
+  const float scale_log2 = p.scale * kLog2e;
+
+  float dk[kD / 2], dv[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dk[i] = dv[i] = 0.f;
+  // A tile wholly past kv_len has zero gradients; under the causal mask no
+  // query row before k0 sees this tile's keys.
+  const int q_first = p.causal ? blockIdx.x : 0;
+  const int n = k0 < kv_len ? max((p.Tq + kRows - 1) / kRows - q_first, 0) : 0;
+  auto issue = [&](int it) {   // Q, dO, lse and di of the it-th q tile
+    const int stage = it % L::kStages, q0 = (q_first + it) * kRows;
+    const uint32_t ring = base + L::kRing + stage * 2 * L::kTile;
+    copy_tile<kD>(ring, p, kQ, p.q, b, h, q0, p.Tq);
+    copy_tile<kD>(ring + L::kTile, p, kDO, p.dout, b, h, q0, p.Tq);
+    copy_stats(base + L::kStats + stage * kRows * 4,
+               base + L::kStats + (L::kStages + stage) * kRows * 4, p, b, h, q0);
+  };
+  if (n > 0) {
+    copy_tile<kD>(Ks, p, kK, p.k, b, h, k0, kv_len);
+    copy_tile<kD>(Vs, p, kV, p.v, b, h, k0, kv_len);
+#pragma unroll
+    for (int it = 0; it < L::kStages - 1; ++it) {   // one commit group per q tile
+      if (it < n) issue(it);
+      st::cp_async_commit();
+    }
+    for (int it = 0; it < n; ++it) {
+      if (it + L::kStages - 1 < n) issue(it + L::kStages - 1);
+      st::cp_async_commit();
+      st::cp_async_wait<L::kStages - 1>();   // this tile's group has landed
+      st::fence_proxy_async();
+      __syncthreads();
+      const int stage = it % L::kStages, q0 = (q_first + it) * kRows;
+      const uint32_t Qs = base + L::kRing + stage * 2 * L::kTile, dOs = Qs + L::kTile;
+      const float* lse_s = stats + stage * kRows;
+      const float* di_s = stats + (L::kStages + stage) * kRows;
+
+      // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: rows are this block's keys, columns queries.
+      float s[32], dp[32];
+      st::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kD / 16; ++ks)
+        st::wgmma_ss_m64n64k16(s, st::desc_k_major(Ks, kRows, ks),
+                               st::desc_k_major(Qs, kRows, ks), ks);
+#pragma unroll
+      for (int ks = 0; ks < kD / 16; ++ks)
+        st::wgmma_ss_m64n64k16(dp, st::desc_k_major(Vs, kRows, ks),
+                               st::desc_k_major(dOs, kRows, ks), ks);
+      st::wgmma_commit();
+      st::wgmma_wait<0>();
+      st::fence_regs(s);
+      st::fence_regs(dp);
+
+      // Pᵀ = exp(scale·Sᵀ − lse) on kept pairs (0 elsewhere) and
+      // dSᵀ = Pᵀ (dPᵀ − di), rounded to bf16 as A fragments.
+      uint32_t pa[kRows / 16][4], dsa[kRows / 16][4];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int j = k0 + 16 * warp + (lane >> 2) + 8 * ((i >> 1) & 1);
+        const int c = 8 * (i >> 2) + 2 * (lane & 3);
+        float pv[2], dsv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int t = q0 + c + e;
+          const bool keep = t < p.Tq && j < kv_len && (!p.causal || j <= t);
+          pv[e] = keep ? exp2f(s[i + e] * scale_log2 - lse_s[c + e] * kLog2e) : 0.f;
+          dsv[e] = pv[e] * (dp[i + e] - di_s[c + e]);
+        }
+        pa[i >> 3][(i >> 1) & 3] = st::pack_bf16(pv[0], pv[1]);
+        dsa[i >> 3][(i >> 1) & 3] = st::pack_bf16(dsv[0], dsv[1]);
+      }
+
+      // dV += Pᵀ dO and dK += dSᵀ Q, dO and Q read MN-major.
+      st::fence_regs(dv);
+      st::fence_regs(dk);
+      st::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kRows / 16; ++ks)
+        st::wgmma_rs_k16(dv, pa[ks], st::desc_mn_major(dOs, kRows, ks), 1);
+#pragma unroll
+      for (int ks = 0; ks < kRows / 16; ++ks)
+        st::wgmma_rs_k16(dk, dsa[ks], st::desc_mn_major(Qs, kRows, ks), 1);
+      st::wgmma_commit();
+      st::wgmma_wait<0>();
+      st::fence_regs(dv);
+      st::fence_regs(dk);
+      __syncthreads();   // the stage is refilled at the top of the next iteration
+    }
+  }
+  // Staged through the K/V tiles and ring stage 0, both free now.
+  store_rows<kD>(reinterpret_cast<__nv_bfloat16*>(smem), dv, 1.f, p, kDV, p.dv, b, h,
+                 k0, p.Tk);
+  store_rows<kD>(reinterpret_cast<__nv_bfloat16*>(smem + L::kRing), dk, p.scale, p, kDK,
+                 p.dk, b, h, k0, p.Tk);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(Params p) {
+  using L = BwdSmem<kD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = st::smem_u32(smem);
+  const uint32_t Qs = base, dOs = base + L::kTile;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kv_len = clamp_len(p, b);
+  const int kend = p.causal ? min(kv_len, q0 + kRows) : kv_len;
+  const int n = (kend + kRows - 1) / kRows;
+  const float scale_log2 = p.scale * kLog2e;
+
+  // This thread's two query rows of every fragment, and their lse and di.
+  const int r_lo = 16 * warp + (lane >> 2);
+  float lse2[2], di2[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int t = q0 + r_lo + 8 * e;
+    const size_t at = ((size_t)b * p.H + h) * p.Tq + t;
+    lse2[e] = t < p.Tq ? p.lse_in[at] * kLog2e : 0.f;
+    di2[e] = t < p.Tq ? p.di[at] : 0.f;
+  }
+  float dq[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dq[i] = 0.f;
+  auto issue = [&](int it) {   // K and V of the it-th kv tile
+    const uint32_t ring = base + L::kRing + (it % L::kStages) * 2 * L::kTile;
+    copy_tile<kD>(ring, p, kK, p.k, b, h, it * kRows, kv_len);
+    copy_tile<kD>(ring + L::kTile, p, kV, p.v, b, h, it * kRows, kv_len);
+  };
+  if (n > 0) {
+    copy_tile<kD>(Qs, p, kQ, p.q, b, h, q0, p.Tq);
+    copy_tile<kD>(dOs, p, kDO, p.dout, b, h, q0, p.Tq);
+#pragma unroll
+    for (int it = 0; it < L::kStages - 1; ++it) {
+      if (it < n) issue(it);
+      st::cp_async_commit();
+    }
+    for (int it = 0; it < n; ++it) {
+      if (it + L::kStages - 1 < n) issue(it + L::kStages - 1);
+      st::cp_async_commit();
+      st::cp_async_wait<L::kStages - 1>();
+      st::fence_proxy_async();
+      __syncthreads();
+      const int k0 = it * kRows;
+      const uint32_t Ks = base + L::kRing + (it % L::kStages) * 2 * L::kTile, Vs = Ks + L::kTile;
+
+      // S = Q Kᵀ and dP = dO Vᵀ: rows are this block's queries, columns keys.
+      float s[32], dp[32];
+      st::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kD / 16; ++ks)
+        st::wgmma_ss_m64n64k16(s, st::desc_k_major(Qs, kRows, ks),
+                               st::desc_k_major(Ks, kRows, ks), ks);
+#pragma unroll
+      for (int ks = 0; ks < kD / 16; ++ks)
+        st::wgmma_ss_m64n64k16(dp, st::desc_k_major(dOs, kRows, ks),
+                               st::desc_k_major(Vs, kRows, ks), ks);
+      st::wgmma_commit();
+      st::wgmma_wait<0>();
+      st::fence_regs(s);
+      st::fence_regs(dp);
+
+      // dS = P (dP − di) with P = exp(scale·S − lse) on kept pairs, in bf16.
+      uint32_t dsa[kRows / 16][4];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int hi = (i >> 1) & 1;
+        const int t = q0 + r_lo + 8 * hi;
+        const int c = 8 * (i >> 2) + 2 * (lane & 3);
+        float dsv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = k0 + c + e;
+          const bool keep = t < p.Tq && j < kv_len && (!p.causal || j <= t);
+          const float pv = keep ? exp2f(s[i + e] * scale_log2 - lse2[hi]) : 0.f;
+          dsv[e] = pv * (dp[i + e] - di2[hi]);
+        }
+        dsa[i >> 3][(i >> 1) & 3] = st::pack_bf16(dsv[0], dsv[1]);
+      }
+
+      // dQ += dS K, K read MN-major.
+      st::fence_regs(dq);
+      st::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kRows / 16; ++ks)
+        st::wgmma_rs_k16(dq, dsa[ks], st::desc_mn_major(Ks, kRows, ks), 1);
+      st::wgmma_commit();
+      st::wgmma_wait<0>();
+      st::fence_regs(dq);
+      __syncthreads();
+    }
+  }
+  // Staged through the Q and dO tiles, free now.
+  store_rows<kD>(reinterpret_cast<__nv_bfloat16*>(smem), dq, p.scale, p, kDQ, p.dq, b, h,
+                 q0, p.Tq);
+}
+
 // ---------------------------------------------------------------- launch
 enum Kind { kFwd, kDkv, kDq };
 
@@ -435,17 +748,33 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Tiles: bf16 runs 64-row q tiles against 64-row kv tiles (the dKV kernel
-// walks 32-row q tiles to fit two blocks per SM); f32 keeps 32 x 32 so the
-// f32 tiles fit shared memory at D = 128.
+template <Kind kKind, int kD>
+cudaError_t launch_bwd_bf16(const Params& p, int batch, cudaStream_t stream) {
+  const int rows = kKind == kDkv ? p.Tk : p.Tq;   // rows of the axis a block owns
+  const dim3 grid((rows + kRows - 1) / kRows, p.H, batch);
+  void (*kernel)(Params) =
+      kKind == kDkv ? flash_bwd_dkv_bf16_kernel<kD> : flash_bwd_dq_bf16_kernel<kD>;
+  const int smem = static_cast<int>(BwdSmem<kD>::kBytes);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  if (grid.x == 0) return cudaSuccess;
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Tiles: the bf16 forward runs 64-row q tiles against 64-row kv tiles; the
+// bf16 backward is the Hopper path above, with D padded to 64 or 128; f32
+// keeps 32 x 32 so the f32 tiles fit shared memory at D = 128.
 template <Kind kKind>
 cudaError_t dispatch(Params& p, int batch, int is_bf16, cudaStream_t stream) {
   if (p.D < 1 || p.D > 128 || p.H < 1 || batch < 1 || p.Tq < 0 || p.Tk < 0)
     return cudaErrorInvalidValue;
   p.Dp = (p.D + 15) / 16 * 16;
   if (!is_bf16) return launch<kKind, float, 32, 32>(p, batch, stream);
-  if constexpr (kKind == kDkv) return launch<kKind, __nv_bfloat16, 32, 64>(p, batch, stream);
-  else return launch<kKind, __nv_bfloat16, 64, 64>(p, batch, stream);
+  if constexpr (kKind == kFwd) return launch<kKind, __nv_bfloat16, 64, 64>(p, batch, stream);
+  else if (p.D <= 64) return launch_bwd_bf16<kKind, 64>(p, batch, stream);
+  else return launch_bwd_bf16<kKind, 128>(p, batch, stream);
 }
 
 Params make_params(const long long* strides, int H, int Tq, int Tk, int D,

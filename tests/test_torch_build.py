@@ -39,8 +39,20 @@ def test_every_source_is_built_for_sm_90a():
     assert {os.path.basename(s) for s in srcs} >= {
         "stft_mel.cu", "beam_prune.cu", "lineage_attention.cu", "flash_attention.cu",
         "fused_adam.cu", "int8_matmul.cu", "int8_ffn.cu"}
+    assert os.path.exists(os.path.join(_build.CSRC, "hopper.cuh"))
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert len(_build._digest(srcs)) == 16
+
+
+def test_digest_covers_headers(tmp_path, monkeypatch):
+    """An edited header (hopper.cuh, common.cuh) rebuilds the library."""
+    for name in ("kernel.cu", "hopper.cuh"):
+        (tmp_path / name).write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    srcs = _build._sources()
+    before = _build._digest(srcs)
+    (tmp_path / "hopper.cuh").write_text("// two\n")
+    assert _build._digest(srcs) != before
 
 
 def test_build_without_nvcc_raises():

@@ -17,8 +17,8 @@ torch = pytest.importorskip("torch")
 from speech_tranformer_pytorch_tpu.kernels.flash_attention import mha_flash  # noqa: E402
 from speech_tranformer_pytorch_tpu_torch.kernels import interface  # noqa: E402
 from speech_tranformer_pytorch_tpu_torch.kernels.flash_attention import (  # noqa: E402
-    MASK_VALUE, FlashAttention, flash_attention_reference, flash_fwd_cuda,
-    flash_fwd_reference)
+    MASK_VALUE, FlashAttention, _bwd_operands, flash_attention_reference,
+    flash_fwd_cuda, flash_fwd_reference)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 
@@ -28,6 +28,8 @@ CASES = [
     ("causal_ragged", (2, 37, 37, 2, 32), [37, 15], True),
     ("zero_length", (2, 24, 24, 1, 16), [24, 0], False),
     ("non_tile_multiple", (2, 70, 67, 2, 64), [67, 33], False),
+    ("wide_head", (2, 24, 24, 2, 128), [24, 13], False),     # the sharded preset's D
+    ("causal_long", (2, 200, 200, 1, 16), [200, 131], True),  # > three 64-row tiles
 ]
 
 
@@ -110,6 +112,54 @@ def test_bf16_matches_jax():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["ragged", "causal"])
+def test_bf16_grads_match_jax(causal):
+    """bf16 dq, dk and dv of the port's plain path (``FlashAttention`` over
+    the plain versions of the three kernels, the functions the kernels are
+    held to on the card) against ``jax.grad`` of ``mha_flash``, within 2e-2
+    of each tensor's largest value."""
+    q, k, v, w = _inputs(11, 2, 70, 70, 2, 32)
+    lens = np.array([70, 23], np.int32)
+
+    def loss(q_, k_, v_):
+        o = mha_flash(q_, k_, v_, kv_lengths=jnp.asarray(lens), causal=causal)
+        return jnp.sum(o.astype(jnp.float32) * w)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    qt, kt, vt = (torch.from_numpy(x).to(torch.bfloat16).transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    o = FlashAttention.apply(qt, kt, vt, torch.from_numpy(lens), causal)
+    (o.float() * torch.from_numpy(w).transpose(1, 2)).sum().backward()
+    for name, got, ref in zip(("dq", "dk", "dv"), (qt, kt, vt), want):
+        assert got.grad.dtype == torch.bfloat16
+        ref = np.asarray(ref, np.float32)
+        np.testing.assert_allclose(got.grad.transpose(1, 2).float().numpy(), ref,
+                                   rtol=0, atol=2e-2 * np.abs(ref).max(), err_msg=name)
+
+
+def test_bwd_operands_copy_only_what_the_kernels_cannot_read():
+    """The bf16 backward kernels copy rows in 16-byte chunks: aligned views
+    (those of a fused QKV projection too) go in as they are; D not a
+    multiple of 8 or a stride off the 16-byte grid gets an aligned copy,
+    zero-padded to a multiple of 8 columns; f32 inputs are never copied."""
+    qkv = torch.randn(2, 5, 3, 4, 64, dtype=torch.bfloat16)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    do = torch.randn(2, 5, 4, 64, dtype=torch.bfloat16).transpose(1, 2)
+    out = _bwd_operands(q, k, v, do)
+    assert all(a is b for a, b in zip(out, (q, k, v, do)))
+    narrow = torch.randn(2, 5, 4, 20, dtype=torch.bfloat16).transpose(1, 2)
+    strided = torch.randn(2, 5, 4, 65, dtype=torch.bfloat16)[..., :64].transpose(1, 2)
+    for x, d8 in ((narrow, 24), (strided, 64)):
+        got = _bwd_operands(x, x, x, x)
+        assert len(got) == 4 and all(g.shape == x.shape[:3] + (d8,) for g in got)
+        for g in got:
+            assert g.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in g.stride()[:3])
+            assert torch.equal(g[..., :x.shape[-1]], x) and not g[..., x.shape[-1]:].any()
+    f = narrow.float()
+    assert _bwd_operands(f, f, f, f)[0] is f
 
 
 def test_dispatch_rules():
