@@ -27,38 +27,39 @@
 // backward) and ds are rounded to bf16 before their products, as the TPU
 // forward rounds p before its PV product.
 //
-// Forward (bf16 and f32) and the f32 backward: 128-thread blocks, tiles
-// staged in shared memory, products through WMMA (bf16 in, f32
-// accumulate) for bf16 and as f32 FMAs for f32.
+// f32 (forward and backward), which serves only the card-against-CPU f32
+// checks: 128-thread blocks, 32 x 32 tiles staged in shared memory,
+// products as f32 FMAs.
 //
-// bf16 backward (Hopper): one warpgroup per block, 64-row tiles. The dK/dV
-// kernel keeps its K and V tiles and streams Q, dO, lse and di; the dQ
-// kernel keeps Q and dO and streams K and V; the stream runs through a
-// ring of three stages (two at D = 128) in shared memory filled by
-// cp.async, so the next tiles' copies run under this tile's products. Every product is a wgmma
-// (hopper.cuh): S (or Sᵀ) and dP (or dPᵀ) with both operands in shared
-// memory, f32 accumulators in registers; p and ds are computed, masked and
-// rounded to bf16 in those registers and fed straight back as the A
-// operand of dV += Pᵀ dO, dK += dSᵀ Q and dQ += dS K, whose f32
-// accumulators stay in registers for the whole loop. Each gradient tile is
-// written once, through a staging tile, with 16-byte stores. These
-// kernels take D up to 128 padded to 64 or 128 columns, rows that start
-// 16-byte aligned, and D a multiple of 8 or rows zero-padded to one (the
-// wrapper copies other inputs; `vec` is not read).
+// bf16 (Hopper): one warpgroup per block, 64-row tiles, every product a
+// wgmma (hopper.cuh). The forward keeps its Q tile and streams K and V;
+// the dK/dV kernel keeps its K and V tiles and streams Q, dO, lse and di;
+// the dQ kernel keeps Q and dO and streams K and V. The stream runs
+// through a ring of three stages (two at D = 128) in shared memory filled
+// by cp.async, so the next tiles' copies run under this tile's products.
+// S (or Sᵀ) and dP (or dPᵀ) take both operands from shared memory into f32
+// accumulators in registers; p and ds are computed, masked and rounded to
+// bf16 in those registers and fed straight back as the A operand of
+// O += P V, dV += Pᵀ dO, dK += dSᵀ Q and dQ += dS K, whose f32
+// accumulators stay in registers for the whole loop (the forward's online
+// max and sum too: each row lives in one quad of lanes, so the rescale of
+// O is a register multiply). Each output tile is written once, through a
+// staging tile, with 16-byte stores. These kernels take D up to 128
+// padded to 64 or 128 columns, rows that start 16-byte aligned, and D a
+// multiple of 8 or rows zero-padded to one (the wrapper copies other
+// inputs; `vec` is not read).
 //
 // What bounds it on an H100: at the train path's shapes (T' ~ 150, D = 64)
 // the bound is bytes (each input read once, each output written once).
-// The forward is latency and shared-memory bound far above it (one
-// 128-thread block per tile, no pipelining; wgmma and TMA are later work).
-// The bf16 backward computes S, dP and exp for every tile pair in both
-// kernels (7 products a pair where the gradients need 5) and rereads the
-// streamed tiles from L2 once per owned tile; one warpgroup a
-// block waits on each product before the softmax, and the softmax before
-// the next products, so several blocks per SM hide each other's waits.
+// The kernels sit above it because one warpgroup a block runs a serial
+// chain per tile (wait for the copy, S, softmax, the next products) and
+// each block walks only a few tiles (three at T' 149, one at the decoder's
+// 32), so the first copies and the epilogue weigh on a short life; several
+// blocks per SM hide each other's waits. The backward also computes S, dP
+// and exp for every tile pair in both kernels (7 products a pair where the
+// gradients need 5) and rereads the streamed tiles from L2 once per owned
+// tile.
 #include <cuda_bf16.h>
-#include <mma.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -84,15 +85,6 @@ struct Params {
 
 enum { kQ = 0, kK, kV, kO, kDO, kDQ, kDK, kDV };
 
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 __device__ __forceinline__ long long offset(const Params& p, int which, int b,
                                             int h, int t) {
   return b * p.s[which][0] + h * p.s[which][1] + t * p.s[which][2];
@@ -100,13 +92,12 @@ __device__ __forceinline__ long long offset(const Params& p, int which, int b,
 
 // dst[r][d] (leading dimension ld) = src(b, h, row0 + r, d) for r < rows,
 // d < D, where rows past `limit` and columns in [D, Dp) are zero.
-template <typename T>
-__device__ void load_tile(T* dst, int ld, const Params& p, int which,
+__device__ void load_tile(float* dst, int ld, const Params& p, int which,
                           const void* src_v, int b, int h, int row0, int rows,
                           int limit) {
-  const T* src = static_cast<const T*>(src_v);
+  const float* src = static_cast<const float*>(src_v);
   const int D = p.D, Dp = p.Dp;
-  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVec = 16 / sizeof(float);
   if (p.vec) {   // D % kVec == 0 and every row 16-byte aligned (host checks)
     const int chunks = D / kVec;
     for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
@@ -119,58 +110,34 @@ __device__ void load_tile(T* dst, int ld, const Params& p, int which,
     if (Dp > D) {
       for (int i = threadIdx.x; i < rows * (Dp - D); i += blockDim.x) {
         const int r = i / (Dp - D), c = D + i % (Dp - D);
-        dst[r * ld + c] = from_f<T>(0.f);
+        dst[r * ld + c] = 0.f;
       }
     }
     return;
   }
   for (int i = threadIdx.x; i < rows * Dp; i += blockDim.x) {
     const int r = i / Dp, c = i - r * Dp;
-    T val = from_f<T>(0.f);
+    float val = 0.f;
     if (row0 + r < limit && c < D) val = src[offset(p, which, b, h, row0 + r) + c];
     dst[r * ld + c] = val;
   }
 }
 
-// C[M x N] (+)= op(A) op(B) over K; op(A)[i][k] = kTA ? A[k*lda+i] : A[i*lda+k],
-// op(B)[k][j] = kTB ? B[j*ldb+k] : B[k*ldb+j]. M, N, K are multiples of 16.
+// C[M x N] (+)= op(A) op(B) over K in f32 FMAs; op(A)[i][k] = kTA ?
+// A[k*lda+i] : A[i*lda+k], op(B)[k][j] = kTB ? B[j*ldb+k] : B[k*ldb+j].
 // Ends without a barrier.
-template <typename T, bool kTA, bool kTB, bool kAcc>
-__device__ void block_gemm(const T* A, int lda, const T* B, int ldb, float* C,
+template <bool kTA, bool kTB, bool kAcc>
+__device__ void block_gemm(const float* A, int lda, const float* B, int ldb, float* C,
                            int ldc, int M, int N, int K) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    using namespace nvcuda;
-    using LA = typename std::conditional<kTA, wmma::col_major, wmma::row_major>::type;
-    using LB = typename std::conditional<kTB, wmma::col_major, wmma::row_major>::type;
-    const int warp = threadIdx.x >> 5;
-    const int tiles_n = N / 16;
-    for (int tile = warp; tile < (M / 16) * tiles_n; tile += kWarps) {
-      const int ti = (tile / tiles_n) * 16, tj = (tile % tiles_n) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (kAcc)
-        wmma::load_matrix_sync(c, C + ti * ldc + tj, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(c, 0.f);
-      for (int kk = 0; kk < K; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> bm;
-        wmma::load_matrix_sync(a, kTA ? A + kk * lda + ti : A + ti * lda + kk, lda);
-        wmma::load_matrix_sync(bm, kTB ? B + tj * ldb + kk : B + kk * ldb + tj, ldb);
-        wmma::mma_sync(c, a, bm, c);
-      }
-      wmma::store_matrix_sync(C + ti * ldc + tj, c, ldc, wmma::mem_row_major);
+  for (int idx = threadIdx.x; idx < M * N; idx += blockDim.x) {
+    const int i = idx / N, j = idx - i * N;
+    float acc = kAcc ? C[i * ldc + j] : 0.f;
+    for (int kk = 0; kk < K; ++kk) {
+      const float a = kTA ? A[kk * lda + i] : A[i * lda + kk];
+      const float bv = kTB ? B[j * ldb + kk] : B[kk * ldb + j];
+      acc = fmaf(a, bv, acc);
     }
-  } else {
-    for (int idx = threadIdx.x; idx < M * N; idx += blockDim.x) {
-      const int i = idx / N, j = idx - i * N;
-      float acc = kAcc ? C[i * ldc + j] : 0.f;
-      for (int kk = 0; kk < K; ++kk) {
-        const float a = kTA ? A[kk * lda + i] : A[i * lda + kk];
-        const float bv = kTB ? B[j * ldb + kk] : B[kk * ldb + j];
-        acc = fmaf(a, bv, acc);
-      }
-      C[i * ldc + j] = acc;
-    }
+    C[i * ldc + j] = acc;
   }
 }
 
@@ -182,29 +149,29 @@ __device__ __forceinline__ bool kept(const Params& p, int row, int col, int kv_l
   return col < kv_len && (!p.causal || col <= row);
 }
 
-// Leading dimensions: T tiles pad by 8 elements, f32 tiles by 4, which keeps
-// every 16-row WMMA tile 32-byte aligned and staggers shared-memory banks.
+// Leading dimensions of the f32 kernels' tiles: input tiles pad by 8
+// elements, score and accumulator tiles by 4, staggering shared-memory banks.
 __host__ __device__ inline int ld_t(int Dp) { return Dp + 8; }
 __host__ __device__ inline int ld_f(int n) { return n + 4; }
 
 // ---------------------------------------------------------------- forward
-template <typename T, int BQ, int BK>
+template <int BQ, int BK>
 __host__ __device__ size_t fwd_smem(int Dp) {
-  return sizeof(T) * (size_t)(BQ + 2 * BK) * ld_t(Dp)      // Q, K, V
-         + sizeof(T) * (size_t)BQ * (BK + 8)                // P
+  return sizeof(float) * (size_t)(BQ + 2 * BK) * ld_t(Dp)      // Q, K, V
+         + sizeof(float) * (size_t)BQ * (BK + 8)                // P
          + sizeof(float) * (size_t)BQ * (ld_f(BK) + ld_f(Dp))  // S, O
          + sizeof(float) * 3 * BQ;                          // m, l, alpha
 }
 
-template <typename T, int BQ, int BK>
+template <int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const int Dp = p.Dp, ldt = ld_t(Dp), ldp = BK + 8, lds = ld_f(BK), ldo = ld_f(Dp);
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + BQ * ldt;
-  T* Vs = Ks + BK * ldt;
-  T* Ps = Vs + BK * ldt;
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + BQ * ldt;
+  float* Vs = Ks + BK * ldt;
+  float* Ps = Vs + BK * ldt;
   float* S = reinterpret_cast<float*>(Ps + BQ * ldp);
   float* O = S + BQ * lds;
   float* m = O + BQ * ldo;
@@ -214,7 +181,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 
   const int kv_len = clamp_len(p, b);
   const int kend = p.causal ? min(kv_len, q0 + BQ) : kv_len;
-  load_tile<T>(Qs, ldt, p, kQ, p.q, b, h, q0, BQ, p.Tq);
+  load_tile(Qs, ldt, p, kQ, p.q, b, h, q0, BQ, p.Tq);
   for (int i = threadIdx.x; i < BQ * ldo; i += blockDim.x) O[i] = 0.f;
   for (int r = threadIdx.x; r < BQ; r += blockDim.x) {
     m[r] = kMaskValue;
@@ -223,10 +190,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   __syncthreads();
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
-    load_tile<T>(Ks, ldt, p, kK, p.k, b, h, k0, BK, kv_len);
-    load_tile<T>(Vs, ldt, p, kV, p.v, b, h, k0, BK, kv_len);
+    load_tile(Ks, ldt, p, kK, p.k, b, h, k0, BK, kv_len);
+    load_tile(Vs, ldt, p, kV, p.v, b, h, k0, BK, kv_len);
     __syncthreads();
-    block_gemm<T, false, true, false>(Qs, ldt, Ks, ldt, S, lds, BQ, BK, Dp);
+    block_gemm<false, true, false>(Qs, ldt, Ks, ldt, S, lds, BQ, BK, Dp);
     __syncthreads();
     for (int r = warp; r < BQ; r += kWarps) {
       const int row = q0 + r;
@@ -246,7 +213,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       for (int c = 0; c < BK / 32; ++c) {
         const float e = expf(s[c] - m_next);
         sum += e;
-        Ps[r * ldp + lane + 32 * c] = from_f<T>(e);
+        Ps[r * ldp + lane + 32 * c] = e;
       }
       sum = st::warp_sum(sum);
       if (lane == 0) {
@@ -262,18 +229,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       O[r * ldo + (i - r * Dp)] *= alpha[r];
     }
     __syncthreads();
-    block_gemm<T, false, false, true>(Ps, ldp, Vs, ldt, O, ldo, BQ, Dp, BK);
+    block_gemm<false, false, true>(Ps, ldp, Vs, ldt, O, ldo, BQ, Dp, BK);
     __syncthreads();
   }
 
-  T* out = static_cast<T*>(p.out);
+  float* out = static_cast<float*>(p.out);
   for (int i = threadIdx.x; i < BQ * p.D; i += blockDim.x) {
     const int r = i / p.D, d = i - r * p.D;
     const int row = q0 + r;
     if (row < p.Tq) {
       const float lr = l[r];
       const float l_inv = lr == 0.f ? 1.f : 1.f / lr;
-      out[offset(p, kO, b, h, row) + d] = from_f<T>(O[r * ldo + d] * l_inv);
+      out[offset(p, kO, b, h, row) + d] = O[r * ldo + d] * l_inv;
     }
   }
   for (int r = threadIdx.x; r < BQ; r += blockDim.x) {
@@ -286,15 +253,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 // ------------------------------------------- backward, f32: shared helpers
 // For one (q tile, kv tile) pair: S = Q K^T, dP = dO V^T, then
 // P = exp(S*scale - lse) on kept pairs (0 elsewhere) and dS = P (dP - di).
-// P and dS are written in T for the following products (Pt may be null).
-template <typename T, int BQ, int BK>
-__device__ void bwd_probs(const Params& p, const T* Qs, const T* dOs, const T* Ks,
-                          const T* Vs, float* S, float* dP, const float* lse_s,
-                          const float* di_s, T* Pt, T* dSt, int q0, int k0,
+// P and dS are written for the following products (Pt may be null).
+template <int BQ, int BK>
+__device__ void bwd_probs(const Params& p, const float* Qs, const float* dOs, const float* Ks,
+                          const float* Vs, float* S, float* dP, const float* lse_s,
+                          const float* di_s, float* Pt, float* dSt, int q0, int k0,
                           int kv_len) {
   const int Dp = p.Dp, ldt = ld_t(Dp), lds = ld_f(BK), ldp = BK + 8;
-  block_gemm<T, false, true, false>(Qs, ldt, Ks, ldt, S, lds, BQ, BK, Dp);
-  block_gemm<T, false, true, false>(dOs, ldt, Vs, ldt, dP, lds, BQ, BK, Dp);
+  block_gemm<false, true, false>(Qs, ldt, Ks, ldt, S, lds, BQ, BK, Dp);
+  block_gemm<false, true, false>(dOs, ldt, Vs, ldt, dP, lds, BQ, BK, Dp);
   __syncthreads();
   for (int i = threadIdx.x; i < BQ * BK; i += blockDim.x) {
     const int r = i / BK, c = i - r * BK;
@@ -303,8 +270,8 @@ __device__ void bwd_probs(const Params& p, const T* Qs, const T* dOs, const T* K
     if (row < p.Tq && kept(p, row, k0 + c, kv_len))
       pv = expf(S[r * lds + c] * p.scale - lse_s[r]);
     const float ds = pv * (dP[r * lds + c] - di_s[r]);
-    if (Pt != nullptr) Pt[r * ldp + c] = from_f<T>(pv);
-    dSt[r * ldp + c] = from_f<T>(ds);
+    if (Pt != nullptr) Pt[r * ldp + c] = pv;
+    dSt[r * ldp + c] = ds;
   }
   __syncthreads();
 }
@@ -320,26 +287,26 @@ __device__ void load_stats(const Params& p, float* lse_s, float* di_s, int b,
 }
 
 // ----------------------------------------------------- backward dKV, f32
-template <typename T, int BQ, int BK>
+template <int BQ, int BK>
 __host__ __device__ size_t dkv_smem(int Dp) {
-  return sizeof(T) * (size_t)(2 * BK + 2 * BQ) * ld_t(Dp)   // K, V, Q, dO
-         + sizeof(T) * (size_t)2 * BQ * (BK + 8)             // P, dS
+  return sizeof(float) * (size_t)(2 * BK + 2 * BQ) * ld_t(Dp)   // K, V, Q, dO
+         + sizeof(float) * (size_t)2 * BQ * (BK + 8)             // P, dS
          + sizeof(float) * (size_t)2 * BQ * ld_f(BK)         // S, dP
          + sizeof(float) * (size_t)2 * BK * ld_f(Dp)         // dK, dV
          + sizeof(float) * 2 * BQ;                           // lse, di
 }
 
-template <typename T, int BQ, int BK>
+template <int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BK;
   const int Dp = p.Dp, ldt = ld_t(Dp), ldp = BK + 8, lds = ld_f(BK), ldo = ld_f(Dp);
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + BK * ldt;
-  T* Qs = Vs + BK * ldt;
-  T* dOs = Qs + BQ * ldt;
-  T* Pt = dOs + BQ * ldt;
-  T* dSt = Pt + BQ * ldp;
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + BK * ldt;
+  float* Qs = Vs + BK * ldt;
+  float* dOs = Qs + BQ * ldt;
+  float* Pt = dOs + BQ * ldt;
+  float* dSt = Pt + BQ * ldp;
   float* S = reinterpret_cast<float*>(dSt + BQ * ldp);
   float* dP = S + BQ * lds;
   float* dK = dP + BQ * lds;
@@ -353,54 +320,54 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
     dV[i] = 0.f;
   }
   if (k0 < kv_len) {   // a tile wholly past kv_len has zero gradients
-    load_tile<T>(Ks, ldt, p, kK, p.k, b, h, k0, BK, kv_len);
-    load_tile<T>(Vs, ldt, p, kV, p.v, b, h, k0, BK, kv_len);
+    load_tile(Ks, ldt, p, kK, p.k, b, h, k0, BK, kv_len);
+    load_tile(Vs, ldt, p, kV, p.v, b, h, k0, BK, kv_len);
     // Under the causal mask no row before k0 sees this tile's keys.
     for (int q0 = p.causal ? (k0 / BQ) * BQ : 0; q0 < p.Tq; q0 += BQ) {
-      load_tile<T>(Qs, ldt, p, kQ, p.q, b, h, q0, BQ, p.Tq);
-      load_tile<T>(dOs, ldt, p, kDO, p.dout, b, h, q0, BQ, p.Tq);
+      load_tile(Qs, ldt, p, kQ, p.q, b, h, q0, BQ, p.Tq);
+      load_tile(dOs, ldt, p, kDO, p.dout, b, h, q0, BQ, p.Tq);
       load_stats(p, lse_s, di_s, b, h, q0, BQ);
       __syncthreads();
-      bwd_probs<T, BQ, BK>(p, Qs, dOs, Ks, Vs, S, dP, lse_s, di_s, Pt, dSt, q0,
+      bwd_probs<BQ, BK>(p, Qs, dOs, Ks, Vs, S, dP, lse_s, di_s, Pt, dSt, q0,
                            k0, kv_len);
-      block_gemm<T, true, false, true>(Pt, ldp, dOs, ldt, dV, ldo, BK, Dp, BQ);
-      block_gemm<T, true, false, true>(dSt, ldp, Qs, ldt, dK, ldo, BK, Dp, BQ);
+      block_gemm<true, false, true>(Pt, ldp, dOs, ldt, dV, ldo, BK, Dp, BQ);
+      block_gemm<true, false, true>(dSt, ldp, Qs, ldt, dK, ldo, BK, Dp, BQ);
       __syncthreads();
     }
   }
   __syncthreads();
-  T* dk = static_cast<T*>(p.dk);
-  T* dv = static_cast<T*>(p.dv);
+  float* dk = static_cast<float*>(p.dk);
+  float* dv = static_cast<float*>(p.dv);
   for (int i = threadIdx.x; i < BK * p.D; i += blockDim.x) {
     const int r = i / p.D, d = i - r * p.D;
     const int row = k0 + r;
     if (row < p.Tk) {
-      dk[offset(p, kDK, b, h, row) + d] = from_f<T>(dK[r * ldo + d] * p.scale);
-      dv[offset(p, kDV, b, h, row) + d] = from_f<T>(dV[r * ldo + d]);
+      dk[offset(p, kDK, b, h, row) + d] = dK[r * ldo + d] * p.scale;
+      dv[offset(p, kDV, b, h, row) + d] = dV[r * ldo + d];
     }
   }
 }
 
 // ------------------------------------------------------ backward dQ, f32
-template <typename T, int BQ, int BK>
+template <int BQ, int BK>
 __host__ __device__ size_t dq_smem(int Dp) {
-  return sizeof(T) * (size_t)(2 * BQ + 2 * BK) * ld_t(Dp)   // Q, dO, K, V
-         + sizeof(T) * (size_t)BQ * (BK + 8)                 // dS
+  return sizeof(float) * (size_t)(2 * BQ + 2 * BK) * ld_t(Dp)   // Q, dO, K, V
+         + sizeof(float) * (size_t)BQ * (BK + 8)                 // dS
          + sizeof(float) * (size_t)2 * BQ * ld_f(BK)         // S, dP
          + sizeof(float) * (size_t)BQ * ld_f(Dp)             // dQ
          + sizeof(float) * 2 * BQ;                           // lse, di
 }
 
-template <typename T, int BQ, int BK>
+template <int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const int Dp = p.Dp, ldt = ld_t(Dp), ldp = BK + 8, lds = ld_f(BK), ldo = ld_f(Dp);
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + BQ * ldt;
-  T* Ks = dOs + BQ * ldt;
-  T* Vs = Ks + BK * ldt;
-  T* dSt = Vs + BK * ldt;
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + BQ * ldt;
+  float* Ks = dOs + BQ * ldt;
+  float* Vs = Ks + BK * ldt;
+  float* dSt = Vs + BK * ldt;
   float* S = reinterpret_cast<float*>(dSt + BQ * ldp);
   float* dP = S + BQ * lds;
   float* dQ = dP + BQ * lds;
@@ -409,29 +376,29 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
 
   const int kv_len = clamp_len(p, b);
   const int kend = p.causal ? min(kv_len, q0 + BQ) : kv_len;
-  load_tile<T>(Qs, ldt, p, kQ, p.q, b, h, q0, BQ, p.Tq);
-  load_tile<T>(dOs, ldt, p, kDO, p.dout, b, h, q0, BQ, p.Tq);
+  load_tile(Qs, ldt, p, kQ, p.q, b, h, q0, BQ, p.Tq);
+  load_tile(dOs, ldt, p, kDO, p.dout, b, h, q0, BQ, p.Tq);
   load_stats(p, lse_s, di_s, b, h, q0, BQ);
   for (int i = threadIdx.x; i < BQ * ldo; i += blockDim.x) dQ[i] = 0.f;
   for (int k0 = 0; k0 < kend; k0 += BK) {
-    load_tile<T>(Ks, ldt, p, kK, p.k, b, h, k0, BK, kv_len);
-    load_tile<T>(Vs, ldt, p, kV, p.v, b, h, k0, BK, kv_len);
+    load_tile(Ks, ldt, p, kK, p.k, b, h, k0, BK, kv_len);
+    load_tile(Vs, ldt, p, kV, p.v, b, h, k0, BK, kv_len);
     __syncthreads();
-    bwd_probs<T, BQ, BK>(p, Qs, dOs, Ks, Vs, S, dP, lse_s, di_s, nullptr, dSt,
+    bwd_probs<BQ, BK>(p, Qs, dOs, Ks, Vs, S, dP, lse_s, di_s, nullptr, dSt,
                          q0, k0, kv_len);
-    block_gemm<T, false, false, true>(dSt, ldp, Ks, ldt, dQ, ldo, BQ, Dp, BK);
+    block_gemm<false, false, true>(dSt, ldp, Ks, ldt, dQ, ldo, BQ, Dp, BK);
     __syncthreads();
   }
   __syncthreads();
-  T* dq = static_cast<T*>(p.dq);
+  float* dq = static_cast<float*>(p.dq);
   for (int i = threadIdx.x; i < BQ * p.D; i += blockDim.x) {
     const int r = i / p.D, d = i - r * p.D;
     const int row = q0 + r;
-    if (row < p.Tq) dq[offset(p, kDQ, b, h, row) + d] = from_f<T>(dQ[r * ldo + d] * p.scale);
+    if (row < p.Tq) dq[offset(p, kDQ, b, h, row) + d] = dQ[r * ldo + d] * p.scale;
   }
 }
 
-// ------------------------------------------------ backward, bf16 (Hopper)
+// ------------------------------------------------------- bf16 (Hopper)
 // One warpgroup per block; every tile has kRows rows, the M of wgmma. A
 // tile of kD (64 or 128) columns is laid out as in hopper.cuh.
 constexpr int kRows = 64;
@@ -512,6 +479,144 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* stage, const float (&a
 // 1024-byte aligned start of the dynamic shared memory (generic pointer).
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return raw + ((1024 - (st::smem_u32(raw) & 1023)) & 1023);
+}
+
+// Forward shared memory, from a 1024-byte aligned base: the block's Q
+// tile, then the ring of kStages x (K, V) tiles: 56 KB at D = 64 (three
+// stages, four blocks an SM), 80 KB at D = 128 (two stages).
+template <int kD>
+struct FwdSmem {
+  static constexpr int kStages = kD == 64 ? 3 : 2;
+  static constexpr uint32_t kTile = kRows * kD * 2;
+  static constexpr uint32_t kBytes = kTile + kStages * 2 * kTile + 1024;  // + alignment
+};
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(Params p) {
+  using L = FwdSmem<kD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t Qs = st::smem_u32(smem), ring = Qs + L::kTile;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kv_len = clamp_len(p, b);
+  const int kend = p.causal ? min(kv_len, q0 + kRows) : kv_len;
+  const int n = (kend + kRows - 1) / kRows;
+
+  // This thread's two query rows of every fragment (r_lo and r_lo + 8),
+  // their running max m of the scaled scores and sum l of p, in f32.
+  const int r_lo = 16 * warp + (lane >> 2);
+  float m2[2] = {kMaskValue, kMaskValue}, l2[2] = {0.f, 0.f};
+  float o[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+  auto issue = [&](int it) {   // K and V of the it-th kv tile
+    const uint32_t stage = ring + (it % L::kStages) * 2 * L::kTile;
+    copy_tile<kD>(stage, p, kK, p.k, b, h, it * kRows, kv_len);
+    copy_tile<kD>(stage + L::kTile, p, kV, p.v, b, h, it * kRows, kv_len);
+  };
+  if (n > 0) {
+    copy_tile<kD>(Qs, p, kQ, p.q, b, h, q0, p.Tq);
+#pragma unroll
+    for (int it = 0; it < L::kStages - 1; ++it) {   // one commit group per kv tile
+      if (it < n) issue(it);
+      st::cp_async_commit();
+    }
+    for (int it = 0; it < n; ++it) {
+      if (it + L::kStages - 1 < n) issue(it + L::kStages - 1);
+      st::cp_async_commit();
+      st::cp_async_wait<L::kStages - 1>();   // this tile's group has landed
+      st::fence_proxy_async();
+      __syncthreads();
+      const int k0 = it * kRows;
+      const uint32_t Ks = ring + (it % L::kStages) * 2 * L::kTile, Vs = Ks + L::kTile;
+
+      // S = Q Kᵀ: rows are this block's queries, columns keys.
+      float s[32];
+      st::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kD / 16; ++ks)
+        st::wgmma_ss_m64n64k16(s, st::desc_k_major(Qs, kRows, ks),
+                               st::desc_k_major(Ks, kRows, ks), ks);
+      st::wgmma_commit();
+      st::wgmma_wait<0>();
+      st::fence_regs(s);
+
+      // Online softmax over the quad of lanes that shares each row: scaled
+      // scores, masked ones at kMaskValue for the max, as the TPU kernel.
+      uint32_t keep = 0;
+      float mt[2] = {m2[0], m2[1]};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hi = (i >> 1) & 1;
+        const int t = q0 + r_lo + 8 * hi, j = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        const bool kept_ij = j < kv_len && (!p.causal || j <= t);
+        keep |= static_cast<uint32_t>(kept_ij) << i;
+        s[i] = kept_ij ? s[i] * p.scale : kMaskValue;
+        mt[hi] = fmaxf(mt[hi], s[i]);
+      }
+      float alpha[2], m_log2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mt[e] = fmaxf(mt[e], __shfl_xor_sync(0xffffffffu, mt[e], 1));
+        mt[e] = fmaxf(mt[e], __shfl_xor_sync(0xffffffffu, mt[e], 2));
+        alpha[e] = exp2f((m2[e] - mt[e]) * kLog2e);
+        m2[e] = mt[e];
+        m_log2[e] = mt[e] * kLog2e;
+      }
+      // p = exp(s - m) on kept pairs and exactly 0 elsewhere; l sums the
+      // f32 p, the PV product takes p rounded to bf16 as A fragments.
+      uint32_t pa[kRows / 16][4];
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int hi = (i >> 1) & 1;
+        float pv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          pv[e] = (keep >> (i + e)) & 1u ? exp2f(fmaf(s[i + e], kLog2e, -m_log2[hi])) : 0.f;
+        rs[hi] += pv[0] + pv[1];
+        pa[i >> 3][(i >> 1) & 3] = st::pack_bf16(pv[0], pv[1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        rs[e] += __shfl_xor_sync(0xffffffffu, rs[e], 1);
+        rs[e] += __shfl_xor_sync(0xffffffffu, rs[e], 2);
+        l2[e] = alpha[e] * l2[e] + rs[e];
+      }
+
+      // O = alpha O + P V, V read MN-major.
+#pragma unroll
+      for (int i = 0; i < kD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      st::fence_regs(o);
+      st::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kRows / 16; ++ks)
+        st::wgmma_rs_k16(o, pa[ks], st::desc_mn_major(Vs, kRows, ks), 1);
+      st::wgmma_commit();
+      st::wgmma_wait<0>();
+      st::fence_regs(o);
+      __syncthreads();   // the stage is refilled at the top of the next iteration
+    }
+    st::cp_async_wait<0>();
+  }
+  // o = acc / l (a row with no kept key keeps acc = 0), staged through the
+  // ring, free now; lse = m + log(max(l, 1e-37)) from one lane per row.
+  float inv[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) inv[e] = l2[e] == 0.f ? 1.f : 1.f / l2[e];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] *= inv[(i >> 1) & 1];
+  store_rows<kD>(reinterpret_cast<__nv_bfloat16*>(smem + L::kTile), o, 1.f, p, kO, p.out, b,
+                 h, q0, p.Tq);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int t = q0 + r_lo + 8 * e;
+      if (t < p.Tq)
+        p.lse[((size_t)b * p.H + h) * p.Tq + t] = m2[e] + logf(fmaxf(l2[e], 1e-37f));
+    }
+  }
 }
 
 template <int kD>
@@ -723,22 +828,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(Params p) {
 // ---------------------------------------------------------------- launch
 enum Kind { kFwd, kDkv, kDq };
 
-template <Kind kKind, typename T, int BQ, int BK>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+template <Kind kKind, int BQ, int BK>
+cudaError_t launch_f32(const Params& p, int batch, cudaStream_t stream) {
   const int own = kKind == kDkv ? BK : BQ;   // rows of the axis a block owns
   const int rows = kKind == kDkv ? p.Tk : p.Tq;
   const dim3 grid((rows + own - 1) / own, p.H, batch);
   void (*kernel)(Params);
   size_t smem;
   if constexpr (kKind == kFwd) {
-    kernel = flash_fwd_kernel<T, BQ, BK>;
-    smem = fwd_smem<T, BQ, BK>(p.Dp);
+    kernel = flash_fwd_kernel<BQ, BK>;
+    smem = fwd_smem<BQ, BK>(p.Dp);
   } else if constexpr (kKind == kDkv) {
-    kernel = flash_bwd_dkv_kernel<T, BQ, BK>;
-    smem = dkv_smem<T, BQ, BK>(p.Dp);
+    kernel = flash_bwd_dkv_kernel<BQ, BK>;
+    smem = dkv_smem<BQ, BK>(p.Dp);
   } else {
-    kernel = flash_bwd_dq_kernel<T, BQ, BK>;
-    smem = dq_smem<T, BQ, BK>(p.Dp);
+    kernel = flash_bwd_dq_kernel<BQ, BK>;
+    smem = dq_smem<BQ, BK>(p.Dp);
   }
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -749,12 +854,14 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 }
 
 template <Kind kKind, int kD>
-cudaError_t launch_bwd_bf16(const Params& p, int batch, cudaStream_t stream) {
+cudaError_t launch_bf16(const Params& p, int batch, cudaStream_t stream) {
   const int rows = kKind == kDkv ? p.Tk : p.Tq;   // rows of the axis a block owns
   const dim3 grid((rows + kRows - 1) / kRows, p.H, batch);
-  void (*kernel)(Params) =
-      kKind == kDkv ? flash_bwd_dkv_bf16_kernel<kD> : flash_bwd_dq_bf16_kernel<kD>;
-  const int smem = static_cast<int>(BwdSmem<kD>::kBytes);
+  void (*kernel)(Params) = kKind == kFwd   ? flash_fwd_bf16_kernel<kD>
+                           : kKind == kDkv ? flash_bwd_dkv_bf16_kernel<kD>
+                                           : flash_bwd_dq_bf16_kernel<kD>;
+  const int smem =
+      static_cast<int>(kKind == kFwd ? FwdSmem<kD>::kBytes : BwdSmem<kD>::kBytes);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -763,18 +870,16 @@ cudaError_t launch_bwd_bf16(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Tiles: the bf16 forward runs 64-row q tiles against 64-row kv tiles; the
-// bf16 backward is the Hopper path above, with D padded to 64 or 128; f32
+// Tiles: bf16 is the Hopper path above, with D padded to 64 or 128; f32
 // keeps 32 x 32 so the f32 tiles fit shared memory at D = 128.
 template <Kind kKind>
 cudaError_t dispatch(Params& p, int batch, int is_bf16, cudaStream_t stream) {
   if (p.D < 1 || p.D > 128 || p.H < 1 || batch < 1 || p.Tq < 0 || p.Tk < 0)
     return cudaErrorInvalidValue;
   p.Dp = (p.D + 15) / 16 * 16;
-  if (!is_bf16) return launch<kKind, float, 32, 32>(p, batch, stream);
-  if constexpr (kKind == kFwd) return launch<kKind, __nv_bfloat16, 64, 64>(p, batch, stream);
-  else if (p.D <= 64) return launch_bwd_bf16<kKind, 64>(p, batch, stream);
-  else return launch_bwd_bf16<kKind, 128>(p, batch, stream);
+  if (!is_bf16) return launch_f32<kKind, 32, 32>(p, batch, stream);
+  if (p.D <= 64) return launch_bf16<kKind, 64>(p, batch, stream);
+  return launch_bf16<kKind, 128>(p, batch, stream);
 }
 
 Params make_params(const long long* strides, int H, int Tq, int Tk, int D,

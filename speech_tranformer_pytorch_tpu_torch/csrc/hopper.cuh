@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: cp.async
-// copies into shared memory, the 128-byte swizzled tile layout that wgmma
-// reads, wgmma matrix descriptors and the wgmma instructions themselves
-// (inline PTX; the forms follow the PTX ISA's wgmma.mma_async section).
+// copies into shared memory, thread-block cluster barriers, mbarriers and
+// st.async stores into another block's shared memory, the 128-byte
+// swizzled tile layout that wgmma reads, wgmma matrix descriptors and the
+// wgmma instructions themselves (inline PTX; the forms follow the PTX
+// ISA's sections of the same names).
 //
 // Tile layout. A bf16 tile of `rows` rows and 64·n columns is stored as n
 // column blocks of [rows][64]; each 128-byte row of a block holds eight
@@ -59,6 +61,57 @@ __device__ __forceinline__ void cp_async_wait() {
 // cp.async) before later reads by the async proxy (wgmma).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------- clusters and mbarriers
+// A thread-block cluster's barrier, split so that work runs between the
+// arrive and the wait; every thread of every block of the cluster calls
+// both. Release/acquire order what came before the arrive (an mbarrier's
+// initialisation) with what comes after the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of the variable at shared address `addr`
+// in the block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// An mbarrier of `count` arrivals, made visible to the cluster.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               "fence.mbarrier_init.release.cluster;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+// One arrival that also expects `bytes` of asynchronous stores.
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// 16 bytes to the shared memory of another block of the cluster (`dst`
+// and `bar` from map_rank); their arrival completes 16 bytes of `bar`'s
+// expected transactions.
+__device__ __forceinline__ void st_async_16(uint32_t dst, float4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+               "[%0], {%1, %2, %3, %4}, [%5];\n"
+               :: "r"(dst), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar) : "memory");
 }
 
 // ------------------------------------------------------ swizzled tiles
@@ -193,5 +246,59 @@ __device__ __forceinline__ void wgmma_rs_k16(float (&d)[64], const uint32_t (&a)
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
+
+// D[64 x N] += A[64 x 16] B[16 x N] for N = 8, 16, ..., 64 (d holds N / 2
+// values): A a bf16 fragment in registers, B K-major in shared memory (its
+// rows are the N index), as for B = xᵀ in yᵀ = Wᵀ xᵀ. A, B and the
+// predicate's source are in-out operands %0-%5, so the accumulator list of
+// every N starts at %6 and is a prefix of the same list.
+template <int N>
+__device__ void wgmma_rs_k16_kmajor(float (&d)[N / 2], uint32_t a0, uint32_t a1, uint32_t a2,
+                                    uint32_t a3, uint64_t db);
+
+#define ST_ACC_0 "%6, %7, %8, %9"
+#define ST_ACC_1 ", %10, %11, %12, %13"
+#define ST_ACC_2 ", %14, %15, %16, %17"
+#define ST_ACC_3 ", %18, %19, %20, %21"
+#define ST_ACC_4 ", %22, %23, %24, %25"
+#define ST_ACC_5 ", %26, %27, %28, %29"
+#define ST_ACC_6 ", %30, %31, %32, %33"
+#define ST_ACC_7 ", %34, %35, %36, %37"
+#define ST_D4(j) "+f"(d[4 * j]), "+f"(d[4 * j + 1]), "+f"(d[4 * j + 2]), "+f"(d[4 * j + 3])
+#define ST_WGMMA_RS_KMAJOR(N, ACC, ...)                                                     \
+  template <>                                                                               \
+  __device__ __forceinline__ void wgmma_rs_k16_kmajor<N>(                                   \
+      float (&d)[N / 2], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t db) { \
+    int accumulate = 1;                                                                     \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"                                \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" ACC           \
+                 "}, {%0, %1, %2, %3}, %4, p, 1, 1, 0;\n}\n"                                \
+                 : "+r"(a0), "+r"(a1), "+r"(a2), "+r"(a3), "+l"(db), "+r"(accumulate),     \
+                   __VA_ARGS__);                                                            \
+  }
+ST_WGMMA_RS_KMAJOR(8, ST_ACC_0, ST_D4(0))
+ST_WGMMA_RS_KMAJOR(16, ST_ACC_0 ST_ACC_1, ST_D4(0), ST_D4(1))
+ST_WGMMA_RS_KMAJOR(24, ST_ACC_0 ST_ACC_1 ST_ACC_2, ST_D4(0), ST_D4(1), ST_D4(2))
+ST_WGMMA_RS_KMAJOR(32, ST_ACC_0 ST_ACC_1 ST_ACC_2 ST_ACC_3, ST_D4(0), ST_D4(1), ST_D4(2),
+                   ST_D4(3))
+ST_WGMMA_RS_KMAJOR(40, ST_ACC_0 ST_ACC_1 ST_ACC_2 ST_ACC_3 ST_ACC_4, ST_D4(0), ST_D4(1),
+                   ST_D4(2), ST_D4(3), ST_D4(4))
+ST_WGMMA_RS_KMAJOR(48, ST_ACC_0 ST_ACC_1 ST_ACC_2 ST_ACC_3 ST_ACC_4 ST_ACC_5, ST_D4(0),
+                   ST_D4(1), ST_D4(2), ST_D4(3), ST_D4(4), ST_D4(5))
+ST_WGMMA_RS_KMAJOR(56, ST_ACC_0 ST_ACC_1 ST_ACC_2 ST_ACC_3 ST_ACC_4 ST_ACC_5 ST_ACC_6,
+                   ST_D4(0), ST_D4(1), ST_D4(2), ST_D4(3), ST_D4(4), ST_D4(5), ST_D4(6))
+ST_WGMMA_RS_KMAJOR(64, ST_ACC_0 ST_ACC_1 ST_ACC_2 ST_ACC_3 ST_ACC_4 ST_ACC_5 ST_ACC_6 ST_ACC_7,
+                   ST_D4(0), ST_D4(1), ST_D4(2), ST_D4(3), ST_D4(4), ST_D4(5), ST_D4(6),
+                   ST_D4(7))
+#undef ST_WGMMA_RS_KMAJOR
+#undef ST_D4
+#undef ST_ACC_0
+#undef ST_ACC_1
+#undef ST_ACC_2
+#undef ST_ACC_3
+#undef ST_ACC_4
+#undef ST_ACC_5
+#undef ST_ACC_6
+#undef ST_ACC_7
 
 }  // namespace st

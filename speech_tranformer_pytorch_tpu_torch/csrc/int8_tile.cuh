@@ -1,4 +1,5 @@
-// Tiles shared by the int8 kernels (int8_matmul.cu, int8_ffn.cu): loads of
+// Tiles shared by the int8 kernels (int8_ffn.cu, and int8_matmul.cu's f32
+// path and its 16-byte check `vec_ok`): loads of
 // an activation tile and of an int8 weight tile converted to the operand
 // type in shared memory, and a block-wide accumulator C[BM x BN] += A B that
 // runs on the tensor cores (WMMA, bf16 in, f32 accumulate) for bf16

@@ -62,8 +62,8 @@ SIGNATURES = {
     # leaves, n_leaves, max_numel, scalars, b1, 1-b1, b2, 1-b2, eps,
     # weight_decay, bf16_moments, stream
     "st_fused_adam": [_P, _I, _L, _P, _F, _F, _F, _F, _F, _F, _I, _P],
-    # x, wq, scale, y, m, k, n, ldx, is_bf16, stream
-    "st_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P],
+    # x, wq, scale, y, m, k, n, ldx, rows, k_chunk, is_bf16, stream
+    "st_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P],
     # x, w1q, s1, b1, w2q, s2, b2, y, partial, counters, m, k, ff, n, ldx,
     # is_bf16, stream
     "st_int8_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P],

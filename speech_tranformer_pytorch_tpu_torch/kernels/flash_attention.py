@@ -23,7 +23,7 @@ JAX ``custom_vjp`` (:514-532): its forward saves (q, k, v, o, lse,
 kv_lengths); its backward takes di = rowsum(o·dO) in plain torch and runs
 the dK/dV and dQ functions. Each of the three goes through
 ``kernels/interface.py``: the kernel for CUDA tensors, the plain version
-here for CPU tensors. The bf16 backward kernels are the Hopper design
+here for CPU tensors. The three bf16 kernels are the Hopper design
 (wgmma, a cp.async ring, softmax and accumulators in registers); they are
 deterministic (no atomics), and take inputs whose rows are not 16-byte
 aligned, or whose D is not a multiple of 8, through an aligned copy.
@@ -171,9 +171,12 @@ def _lens(kv_lengths: torch.Tensor) -> torch.Tensor:
 
 
 def flash_fwd_cuda(q, k, v, kv_lengths, *, causal: bool):
-    """Kernel wrapper for the forward (B-4): (o, lse) for CUDA tensors."""
+    """Kernel wrapper for the forward (B-4): (o, lse) for CUDA tensors. bf16
+    inputs that the kernel cannot read in place are copied first
+    (``_aligned_operands``)."""
     _check("flash_fwd_cuda", q, k, v, kv_lengths)
     b, h, tq, d = q.shape
+    q, k, v = _aligned_operands(q, k, v)
     o = _like_bthd(q, tq)
     lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
     lens = _lens(kv_lengths)
@@ -184,7 +187,7 @@ def flash_fwd_cuda(q, k, v, kv_lengths, *, causal: bool):
         k.shape[2], d, int(causal), int(q.dtype == torch.bfloat16),
         _vec_ok(d, (q, k, v)), _build.stream_ptr(q.device)), "st_flash_fwd")
     flash_fwd_cuda.launches += 1
-    return o, lse
+    return o[..., :d], lse
 
 
 def _bwd_inputs(name, q, k, v, do, lse, di, kv_lengths):
@@ -198,14 +201,15 @@ def _bwd_inputs(name, q, k, v, do, lse, di, kv_lengths):
     return lse.contiguous(), di.contiguous(), _lens(kv_lengths)
 
 
-def _bwd_operands(*xs):
-    """q, k, v and dO as the backward kernels read them. The bf16 kernels
-    copy rows in 16-byte chunks with cp.async: every row must start 16-byte
+def _aligned_operands(*xs):
+    """q, k, v (and dO) as the kernels read them. The bf16 kernels copy
+    rows in 16-byte chunks with cp.async: every row must start 16-byte
     aligned and hold D rounded up to a multiple of 8 readable columns,
     zeros past D. A bf16 input that breaks this (D not a multiple of 8, a
     stride or base off the 16-byte grid) is replaced by an aligned,
-    zero-padded [B, T, H, D8] copy, seen as [B, H, T, D8]; the gradients
-    then come back in that padded width and the wrappers cut them to D."""
+    zero-padded [B, T, H, D8] copy, seen as [B, H, T, D8]; o and the
+    gradients then come back in that padded width and the wrappers cut
+    them to D."""
     if xs[0].dtype != torch.bfloat16:
         return xs
     d = xs[0].shape[-1]
@@ -224,10 +228,10 @@ def _bwd_operands(*xs):
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, di, kv_lengths, *, causal: bool):
     """Kernel wrapper for dK/dV (B-5). bf16 inputs that the kernel cannot
-    read in place are copied first (``_bwd_operands``)."""
+    read in place are copied first (``_aligned_operands``)."""
     lse, di, lens = _bwd_inputs("flash_bwd_dkv_cuda", q, k, v, do, lse, di, kv_lengths)
     b, h, tq, d = q.shape
-    q, k, v, do = _bwd_operands(q, k, v, do)
+    q, k, v, do = _aligned_operands(q, k, v, do)
     dk, dv = _like_bthd(k, k.shape[2]), _like_bthd(v, k.shape[2])
     lib = _build.library()
     _build.check(lib.st_flash_bwd_dkv(
@@ -242,10 +246,10 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, di, kv_lengths, *, causal: bool):
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, di, kv_lengths, *, causal: bool):
     """Kernel wrapper for dQ (B-6). bf16 inputs that the kernel cannot read
-    in place are copied first (``_bwd_operands``)."""
+    in place are copied first (``_aligned_operands``)."""
     lse, di, lens = _bwd_inputs("flash_bwd_dq_cuda", q, k, v, do, lse, di, kv_lengths)
     b, h, tq, d = q.shape
-    q, k, v, do = _bwd_operands(q, k, v, do)
+    q, k, v, do = _aligned_operands(q, k, v, do)
     dq = _like_bthd(q, tq)
     lib = _build.library()
     _build.check(lib.st_flash_bwd_dq(

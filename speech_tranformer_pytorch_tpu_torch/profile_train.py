@@ -68,7 +68,7 @@ def smoke_train_batch(device: DeviceLike = None) -> SmokeTrainBatch:
     return SmokeTrainBatch(cfg, state, batch, make_audio_train_step(cfg))
 
 
-_GROUPS = (("flash_fwd", "flash_fwd_kernel"), ("flash_bwd_dkv", "flash_bwd_dkv"),
+_GROUPS = (("flash_fwd", "flash_fwd"), ("flash_bwd_dkv", "flash_bwd_dkv"),
            ("flash_bwd_dq", "flash_bwd_dq"), ("fused_adam", "adam_kernel"),
            ("stft_mel", "stft_mel"), ("gemm", "gemm"), ("gemm", "nvjet"),
            ("gemm", "cutlass"), ("conv", "conv"), ("norm", "norm"),

@@ -63,3 +63,21 @@ def test_build_without_nvcc_raises():
             _build.build()
     else:
         pytest.skip("nvcc is installed here")
+
+
+def test_local_includes_are_headers_the_digest_covers():
+    """Every header a source includes by quotes lies in csrc/ as a .cuh,
+    so an edit of it rebuilds the library; the wgmma kernels include
+    hopper.cuh and the f32 int8 paths int8_tile.cuh."""
+    includes = {}
+    for name in sorted(os.listdir(_build.CSRC)):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(_build.CSRC, name)) as f:
+                includes[name] = re.findall(r'#include "([^"]+)"', f.read())
+    for name, found in includes.items():
+        for header in found:
+            assert header.endswith(".cuh"), (name, header)
+            assert os.path.exists(os.path.join(_build.CSRC, header)), (name, header)
+    assert {"hopper.cuh", "int8_tile.cuh"} <= set(includes["int8_matmul.cu"])
+    assert "hopper.cuh" in includes["flash_attention.cu"]
+    assert "int8_tile.cuh" in includes["int8_ffn.cu"]

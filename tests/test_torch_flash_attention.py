@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 from speech_tranformer_pytorch_tpu.kernels.flash_attention import mha_flash  # noqa: E402
 from speech_tranformer_pytorch_tpu_torch.kernels import interface  # noqa: E402
 from speech_tranformer_pytorch_tpu_torch.kernels.flash_attention import (  # noqa: E402
-    MASK_VALUE, FlashAttention, _bwd_operands, flash_attention_reference,
+    MASK_VALUE, FlashAttention, _aligned_operands, flash_attention_reference,
     flash_fwd_cuda, flash_fwd_reference)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -148,18 +148,36 @@ def test_bwd_operands_copy_only_what_the_kernels_cannot_read():
     qkv = torch.randn(2, 5, 3, 4, 64, dtype=torch.bfloat16)
     q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
     do = torch.randn(2, 5, 4, 64, dtype=torch.bfloat16).transpose(1, 2)
-    out = _bwd_operands(q, k, v, do)
+    out = _aligned_operands(q, k, v, do)
     assert all(a is b for a, b in zip(out, (q, k, v, do)))
     narrow = torch.randn(2, 5, 4, 20, dtype=torch.bfloat16).transpose(1, 2)
     strided = torch.randn(2, 5, 4, 65, dtype=torch.bfloat16)[..., :64].transpose(1, 2)
     for x, d8 in ((narrow, 24), (strided, 64)):
-        got = _bwd_operands(x, x, x, x)
+        got = _aligned_operands(x, x, x, x)
         assert len(got) == 4 and all(g.shape == x.shape[:3] + (d8,) for g in got)
         for g in got:
             assert g.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in g.stride()[:3])
             assert torch.equal(g[..., :x.shape[-1]], x) and not g[..., x.shape[-1]:].any()
     f = narrow.float()
-    assert _bwd_operands(f, f, f, f)[0] is f
+    assert _aligned_operands(f, f, f, f)[0] is f
+
+
+def test_aligned_operands_for_the_forward():
+    """The forward kernel reads q, k and v as the backward kernels do: the
+    same helper leaves aligned views (k and v longer than q) as they are and
+    copies a misaligned one alone, keeping its length."""
+    q = torch.randn(2, 5, 4, 64, dtype=torch.bfloat16).transpose(1, 2)
+    kv = torch.randn(2, 9, 2, 4, 64, dtype=torch.bfloat16)
+    k, v = (x.transpose(1, 2) for x in kv.unbind(2))
+    got = _aligned_operands(q, k, v)
+    assert all(a is b for a, b in zip(got, (q, k, v)))
+    odd = torch.randn(2, 9, 4, 72, dtype=torch.bfloat16)[..., 4:68].transpose(1, 2)
+    gq, gk, gv = _aligned_operands(q, odd, v)
+    assert gq is q and gv is v and gk.shape == odd.shape and torch.equal(gk, odd)
+    assert gk.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in gk.stride()[:3])
+    narrow = torch.randn(2, 5, 4, 20, dtype=torch.bfloat16).transpose(1, 2)
+    got = _aligned_operands(narrow, narrow[:, :, :3], narrow)
+    assert [tuple(g.shape) for g in got] == [(2, 4, 5, 24), (2, 4, 3, 24), (2, 4, 5, 24)]
 
 
 def test_dispatch_rules():

@@ -214,6 +214,33 @@ def test_int8_feed_forward_needs_both_layers_int8():
         Int8Linear(w, None, torch.zeros(256), torch.float32)
 
 
+# The decode denses (B·K = 40 at beam 5, 8 greedy; n 1536 self-qkv, 512),
+# init_cache's cross K/V projections (B·S = 1192) and chip_smoke's odd shapes.
+PLAN_SHAPES = [(40, 512, 1536), (40, 512, 512), (8, 512, 1536), (8, 512, 512),
+               (1192, 512, 512), (48, 2048, 6144), (1, 512, 512), (7, 96, 200)]
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_int8_matmul_plan(m, k, n):
+    """The bf16 kernel's tiling: rows of x a block a multiple of 8 that is
+    wgmma's N (<= 256), every row of x in some block, k split into chunks
+    of whole stages that cover it exactly, at most one cluster of splits,
+    and as many blocks as the target asks or else as many splits as k or
+    the cluster allow."""
+    from speech_tranformer_pytorch_tpu_torch.kernels import int8_matmul as mm
+
+    rows, k_chunk = mm.plan(m, k, n)
+    assert rows % 8 == 0 and 8 <= rows <= min(mm.MAX_ROWS, 256)
+    assert rows >= min(m, mm.MAX_ROWS)
+    assert k_chunk > 0 and k_chunk % mm.STAGE_K == 0
+    splits = -(-k // k_chunk)
+    assert (splits - 1) * k_chunk < k <= splits * k_chunk and splits <= mm.MAX_SPLITS
+    blocks = -(-n // mm.BLOCK_COLS) * -(-m // rows) * splits
+    assert blocks >= mm.TARGET_BLOCKS or k_chunk == mm.STAGE_K or splits == mm.MAX_SPLITS
+    if (m, k, n) in ((40, 512, 1536), (8, 512, 1536), (1192, 512, 512)):
+        assert blocks >= mm.TARGET_BLOCKS
+
+
 def test_kernel_wrappers_refuse_cpu_tensors_and_bad_operands():
     """The kernel wrappers launch on CUDA tensors only (no fallback), and
     both routes check their operands before any launch."""

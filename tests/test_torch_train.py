@@ -144,3 +144,19 @@ def test_loss_falls_over_30_steps():
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
     assert all(np.isfinite(losses)) and losses[-1] < 0.6 * losses[0], losses
+
+
+@pytest.mark.parametrize("kernel,group", [
+    ("void (anonymous namespace)::flash_fwd_bf16_kernel<64>(Params)", "flash_fwd"),
+    ("void (anonymous namespace)::flash_fwd_kernel<32, 32>(Params)", "flash_fwd"),
+    ("void (anonymous namespace)::flash_bwd_dq_bf16_kernel<64>(Params)", "flash_bwd_dq"),
+    ("void (anonymous namespace)::adam_kernel<__nv_bfloat16>(...)", "fused_adam"),
+    ("nvjet_tst_128x64_64x8_2x1_v_bz_TNT", "gemm"),
+    ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise/other"),
+])
+def test_profile_groups_name_each_kernel(kernel, group):
+    """profile_train's device-time groups find the port's kernels by name,
+    the bf16 and f32 flash forward alike."""
+    from speech_tranformer_pytorch_tpu_torch.profile_train import _group
+
+    assert _group(kernel) == group
