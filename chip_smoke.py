@@ -8,14 +8,18 @@ Phases (any failure exits non-zero before the final line):
   2. build the CUDA kernels from ``speech_tranformer_pytorch_tpu_torch/csrc``
      and check each against its plain PyTorch version on the card, at the
      main paths' shapes, with timings (CUDA events) and the roofline bound:
-     fbank, beam prune, lineage attention (beam 5 and K = 1), flash
-     attention forward, dK/dV and dQ (``check_flash``: the train shapes,
+     fbank, beam prune, lineage attention (beam 5, a shared history,
+     L 256 and K = 1), flash attention forward, dK/dV and dQ
+     (``check_flash``: the train shapes,
      zero-length rows, D 20, T' 750 and D 128, causal and not, and the
      bf16 forward and backward bit-identical on a second call), the fused
      Adam (``check_adam``), the int8 matmul (``check_int8_matmul``: every
      shape bit-identical on a second call, timed at the decode and
-     ``init_cache`` shapes) and the fused int8 feed-forward with its
-     determinism (``check_int8_ffn``);
+     ``init_cache`` shapes) and the fused int8 feed-forward
+     (``check_int8_ffn``: every shape bit-identical on a second call,
+     timed at the beam-5 and greedy decode shapes); lineage attention is
+     bit-identical on a second call in every case and timed at three
+     decode indices and at K = 1;
   3. the serving main path: ``Recognizer.decode_batch`` at the ``base``
      preset (full width, bf16, seeded random weights) serving 8 int16
      utterances of 4-6 s with beam 5 and max_len 100, with the kernels'
@@ -196,59 +200,99 @@ def check_beam_prune(torch, dev):
     return rec
 
 
+# Lineage attention: beam 5 over the base cache [40, 100, 8, 64] at four
+# indices, every beam sharing beam 0's history (after a prune that kept one
+# parent), a long cache (L 256, index 200: max_decode_len and max_len_ratio
+# can exceed 100) and K = 1 (greedy decoding's identity lineage).
+# Tolerances as the JAX goldens (tests/test_lineage_attention_kernel.py):
+# f32 2e-6 (summation order only), bf16 2e-2 (the weights are rounded to
+# bf16 before the AV product). Every case must be bit-identical on a
+# second call. Timed in bf16 at index 0, 49 and 99 of the beam-5 cache and
+# at K = 1 on 8 rows; the kernels line reports index 49.
+LINEAGE_TIMED = (("beam5", 5, 100, 0), ("beam5", 5, 100, 49), ("beam5", 5, 100, 99),
+                 ("greedy", 1, 100, 49))
+
+
 def check_lineage(torch, dev):
+    from torch.nn import functional as F
     from speech_tranformer_pytorch_tpu_torch.kernels import lineage_attention as la
 
-    b, k, L, h, d = 8, 5, 100, 8, 64
+    b, h, d = 8, 8, 64
     g = torch.Generator().manual_seed(2)
 
-    def inputs(index, dtype, k=k):
+    def inputs(index, dtype, k=5, L=100, shared=False):
         q = torch.randn(b * k, 1, h, d, generator=g)
         ck = torch.randn(b * k, L, h, d, generator=g)
         cv = torch.randn(b * k, L, h, d, generator=g)
         lin = torch.randint(0, k, (b, k, L), generator=g, dtype=torch.int32)
-        lin[:, :, index:] = torch.arange(k, dtype=torch.int32)[None, :, None]
+        if shared:
+            lin[:] = 0
+        lin[:, :, index + shared:] = torch.arange(k, dtype=torch.int32)[None, :, None]
         return [t.to(dev, dtype) for t in (q, ck, cv)] + [lin.to(dev)]
 
-    errs = {}
+    cases = [(f"index={i}", dict(index=i)) for i in (0, 17, 49, 99)]
+    cases += [("shared_history,index=49", dict(index=49, shared=True)),
+              ("L=256,index=200", dict(index=200, L=256))]
+    cases += [(f"K=1,index={i}", dict(index=i, k=1)) for i in (0, 31, 99)]
+    errs, failed = {}, []
     for dtype, atol in ((torch.float32, 2e-6), (torch.bfloat16, 2e-2)):
-        for index in (0, 17, 49, 99):
-            args = inputs(index, dtype)
-            got = la.lineage_attention_cuda(*args, index, k)
-            want = la.lineage_attention_reference(*args, index, k)
+        for label, kw in cases:
+            k = kw.get("k", 5)
+            args = inputs(dtype=dtype, **kw)
+            got = la.lineage_attention_cuda(*args, kw["index"], k)
+            again = la.lineage_attention_cuda(*args, kw["index"], k)
+            want = la.lineage_attention_reference(*args, kw["index"], k)
             torch.cuda.synchronize()
-            if got.dtype != dtype:
-                raise AssertionError(f"lineage_attention: dtype {got.dtype}")
-            name = f"lineage_attention[{str(dtype)[6:]},index={index}]"
-            errs[(dtype, index)] = check_close(name, got, want, atol, 1e-5)
-            emit({"check": {"name": name, "max_abs_err": errs[(dtype, index)]}})
-        for index in (0, 31, 99):      # K = 1: greedy decoding's identity lineage
-            args = inputs(index, dtype, k=1)
-            got = la.lineage_attention_cuda(*args, index, 1)
-            want = la.lineage_attention_reference(*args, index, 1)
-            torch.cuda.synchronize()
-            name = f"lineage_attention[{str(dtype)[6:]},K=1,index={index}]"
-            err = check_close(name, got, want, atol, 1e-5)
-            emit({"check": {"name": name, "max_abs_err": err}})
-    # Timed at the main path's dtype, mid-decode (index 49 of L=100).
-    index = 49
-    args = inputs(index, torch.bfloat16)
-    ms = device_ms(torch, lambda: la.lineage_attention_cuda(*args, index, k))
-    plain_ms = device_ms(torch, lambda: la.lineage_attention_reference(*args, index, k))
-    lin = args[3][:, :, :index + 1].long()
-    distinct = int(torch.zeros(b, k, index + 1, device=dev).scatter_(1, lin, 1.0).sum())
-    nbytes = (2 * distinct * h * d * 2          # selected K and V rows, bf16
-              + 2 * b * k * h * d * 2           # q in, out
-              + b * k * (index + 1) * 4)        # lineage columns read
-    flops = b * k * h * (index + 1) * (4 * d + 5)
-    bound_ms, bound_by = bound(nbytes, flops)
+            name = f"lineage_attention[{str(dtype)[6:]},{label}]"
+            if got.dtype != dtype or got.shape != want.shape:
+                raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}")
+            same = bool(torch.equal(got, again))
+            errs[(dtype, label)] = check_close(name, got, want, atol, 1e-5)
+            emit({"check": {"name": name, "max_abs_err": errs[(dtype, label)],
+                            "second_call_bit_equal": same}})
+            if not same:
+                failed.append(name)
+    if failed:
+        raise AssertionError(f"lineage_attention differs on a second call: {failed}")
+    recs = {}
+    for label, k, L, index in LINEAGE_TIMED:
+        args = inputs(index, torch.bfloat16, k=k, L=L)
+        q, ck, cv, lin = args
+        rows = b * k
+        lin_all = lin[:, :, :index + 1].long()
+        src = (torch.arange(b, device=dev)[:, None, None] * k + lin_all).reshape(rows, -1)
+        pos = torch.arange(index + 1, device=dev)[None, :]
+
+        def gathered_sdpa():   # a yardstick only: not the same function (no
+            kk = ck[src, pos].transpose(1, 2)   # weight rounding to bf16)
+            vv = cv[src, pos].transpose(1, 2)
+            return F.scaled_dot_product_attention(q.transpose(1, 2), kk, vv)
+
+        distinct = int(torch.zeros(b, k, index + 1, device=dev).scatter_(
+            1, lin_all, 1.0).sum())
+        nbytes = (2 * distinct * h * d * 2          # selected K and V rows, bf16
+                  + 2 * rows * h * d * 2            # q in, out
+                  + rows * (index + 1) * 4)         # lineage columns read
+        flops = rows * h * (index + 1) * (4 * d + 5)
+        bound_ms, bound_by = bound(nbytes, flops)
+        rec = dict(ms=device_ms(torch, lambda: la.lineage_attention_cuda(*args, index, k)),
+                   plain_ms=device_ms(torch, lambda: la.lineage_attention_reference(
+                       *args, index, k)),
+                   yardstick_ms=device_ms(torch, gathered_sdpa),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        recs[(label, index)] = rec
+        emit({"check": {"name": f"lineage_timing[{label},{rows}x{L}x{h}x{d},index={index}]",
+                        **rec}})
+    main = recs[("beam5", 49)]
     rec = dict(name="lineage_attention", source=f"{PKG}/csrc/lineage_attention.cu",
                replaces="speech_tranformer_pytorch_tpu/kernels/lineage_attention.py:43",
-               max_abs_err=errs[(torch.bfloat16, index)],
-               max_abs_err_f32=max(v for (dt, _), v in errs.items()
-                                   if dt == torch.float32),
-               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=None, shape=[b * k, L, h, d, index])
+               max_abs_err=max(v for (dt, _), v in errs.items() if dt == torch.bfloat16),
+               max_abs_err_f32=max(v for (dt, _), v in errs.items() if dt == torch.float32),
+               ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+               bound_by=main["bound_by"], library_ms=None, yardstick_ms=main["yardstick_ms"],
+               yardstick_note="gather of the selected K/V rows + scaled_dot_product_attention "
+                              "(not the same function: no bf16 rounding of the weights)",
+               shape=[b * 5, 100, h, d, 49])
     emit({"check": rec})
     return rec
 
@@ -606,12 +650,16 @@ def check_int8_matmul(torch, dev):
     return rec
 
 
-# Fused int8 feed-forward: the base decode shape (B·K = 40, greedy 8) and a
-# ragged one. Tolerances: f32 within 1e-5 of each row's largest value;
-# bf16 within 1e-3 of it (the JAX kernel's bound: the hidden layer is
-# rounded to bf16 after differently ordered sums) plus one bf16 ulp of the
-# output. Two calls on the same inputs must be bit-equal.
-INT8_FFN_SHAPES = [(40, 512, 2048, 512), (8, 512, 2048, 512), (7, 96, 200, 72)]
+# Fused int8 feed-forward: the base decode shapes (B·K = 40, greedy 8), the
+# `large` preset's (d_model 768, d_ff 3072), more than 64 rows (three row
+# tiles) and a ragged one. Tolerances: f32 within 1e-5 of each row's
+# largest value; bf16 within 1e-3 of it (the JAX kernel's bound: the hidden
+# layer is rounded to bf16 after differently ordered sums) plus one bf16
+# ulp of the output. Two calls on the same inputs must be bit-equal. The
+# two base decode shapes are timed; the kernels line reports the first.
+INT8_FFN_SHAPES = [(40, 512, 2048, 512), (8, 512, 2048, 512), (40, 768, 3072, 768),
+                   (130, 512, 2048, 512), (7, 96, 200, 72)]
+INT8_FFN_TIMED = [(40, 512, 2048, 512), (8, 512, 2048, 512)]
 
 
 def check_int8_ffn(torch, dev):
@@ -619,7 +667,7 @@ def check_int8_ffn(torch, dev):
     from speech_tranformer_pytorch_tpu_torch.kernels import int8_ffn as ffn
 
     g = torch.Generator().manual_seed(7)
-    errs, abs_errs, timed, deterministic, failed = {}, {}, None, True, []
+    errs, abs_errs, timed, failed = {}, {}, {}, []
     for m, k, ff, n in INT8_FFN_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             x, w1, s1 = _int8_operands(torch, dev, g, m, k, ff, dtype)
@@ -635,7 +683,6 @@ def check_int8_ffn(torch, dev):
             if got.dtype != dtype or got.shape != (m, n):
                 raise AssertionError(f"{tag}: {got.dtype} {tuple(got.shape)}")
             same = bool(torch.equal(got, again))
-            deterministic &= same
             err = _row_rel_err(got, want)
             if dtype == torch.bfloat16:
                 rowmax = want.float().abs().amax(dim=1, keepdim=True)
@@ -648,30 +695,38 @@ def check_int8_ffn(torch, dev):
                             "max_abs_err": abs_errs[tag], "second_call_bit_equal": same}})
             if bool(bad.any()) or not same:
                 failed.append(tag)
-            if (m, dtype) == (40, torch.bfloat16) and k == 512:
-                timed = args
+            if (m, k, ff, n) in INT8_FFN_TIMED and dtype == torch.bfloat16:
+                timed[(m, k, ff, n)] = args
     if failed:
         raise AssertionError(f"int8_ffn outside its tolerance or not deterministic: {failed}")
-    x, w1, s1, b1, w2, s2, b2 = timed
-    m, k = x.shape
-    ff, n = w2.shape
-    d1 = (w1.to(torch.bfloat16) * s1.to(torch.bfloat16)[None, :]).t().contiguous()
-    d2 = (w2.to(torch.bfloat16) * s2.to(torch.bfloat16)[None, :]).t().contiguous()
-    bb1, bb2 = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
-    ms = device_ms(torch, lambda: ffn.int8_ffn_cuda(*timed))
-    plain_ms = device_ms(torch, lambda: ffn.int8_ffn_reference(*timed))
-    chain_ms = device_ms(torch, lambda: F.linear(F.relu(F.linear(x, d1, bb1)), d2, bb2))
-    nbytes = 2 * m * k + k * ff + ff * n + 8 * ff + 8 * n + 2 * m * n
-    bound_ms, bound_by = bound(nbytes, 2 * m * ff * (k + n), H100_BF16_FLOP_PER_S)
+    recs = {}
+    for (m, k, ff, n), args in timed.items():
+        x, w1, s1, b1, w2, s2, b2 = args
+        d1 = (w1.to(torch.bfloat16) * s1.to(torch.bfloat16)[None, :]).t().contiguous()
+        d2 = (w2.to(torch.bfloat16) * s2.to(torch.bfloat16)[None, :]).t().contiguous()
+        bb1, bb2 = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+        nbytes = 2 * m * k + k * ff + ff * n + 8 * ff + 8 * n + 2 * m * n
+        bound_ms, bound_by = bound(nbytes, 2 * m * ff * (k + n), H100_BF16_FLOP_PER_S)
+        rows, tiles, ranks, col_tiles = ffn.plan(m, k, ff, n)
+        recs[(m, k, ff, n)] = dict(
+            ms=device_ms(torch, lambda: ffn.int8_ffn_cuda(*args)),
+            plain_ms=device_ms(torch, lambda: ffn.int8_ffn_reference(*args)),
+            yardstick_ms=device_ms(torch, lambda: F.linear(F.relu(F.linear(x, d1, bb1)),
+                                                           d2, bb2)),
+            bound_ms=bound_ms, bound_by=bound_by,
+            plan={"rows": rows, "hidden_tiles": tiles, "ranks": ranks, "col_tiles": col_tiles,
+                  "blocks": -(-n // (ffn.BLOCK_COLS * col_tiles)) * -(-m // rows) * ranks})
+        emit({"check": {"name": f"int8_ffn_timing[{m}x{k}x{ff}x{n}]", **recs[(m, k, ff, n)]}})
+    main = recs[INT8_FFN_TIMED[0]]
     rec = dict(name="int8_ffn", source=f"{PKG}/csrc/int8_ffn.cu",
                replaces="speech_tranformer_pytorch_tpu/kernels/int8_ffn.py:50",
                max_abs_err=max(abs_errs.values()), max_err_of_row_max=max(errs.values()),
-               deterministic=deterministic, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-               yardstick_ms=chain_ms,
+               deterministic=True, ms=main["ms"], plain_ms=main["plain_ms"],
+               bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
+               yardstick_ms=main["yardstick_ms"],
                yardstick_note="F.linear + relu + F.linear on bf16-dequantized weights "
                               "(three calls; no single PyTorch call fuses them)",
-               shape=[m, k, ff, n])
+               shape=list(INT8_FFN_TIMED[0]))
     emit({"check": rec})
     return rec
 

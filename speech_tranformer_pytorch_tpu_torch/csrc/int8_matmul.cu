@@ -142,20 +142,6 @@ struct MmArgs {
   long long ldx;
 };
 
-// The int8 value v in the byte of `flipped` (four bytes, sign bits
-// flipped) that `byte_sel` picks, as an exact f32: v + 128 is the low byte
-// of the float 2^23 + (v + 128), and the subtraction is exact. A byte
-// permute and an add, not the slow conversion pipe.
-__device__ __forceinline__ float i8_to_f32(uint32_t flipped, uint32_t byte_sel) {
-  return __uint_as_float(__byte_perm(flipped, 0x4B00u, byte_sel)) - 8388736.f;
-}
-
-// bf16x2 {lo, hi} of two small integers held exactly in f32: their upper
-// halves (the lower 16 bits are zero).
-__device__ __forceinline__ uint32_t pack_exact(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
 // y[row][col], y[row][col + 1] = bf16(v * s) where in range.
 __device__ __forceinline__ void store_pair(const MmArgs& a, int row, int col, float v0,
                                            float v1, float s0, float s1) {
@@ -264,23 +250,9 @@ __global__ void __launch_bounds__(kThreads) int8_matmul_bf16_kernel(MmArgs a) {
     const int stage = it % kStages;
     const uint32_t xs = xs0 + stage * L::kX;
     const unsigned char* ws = smem + kStages * L::kX + stage * L::kW + nl;
-    // A fragment of k-step ks: registers {row lo, row hi} x {k c, c + 8}
-    // with c = 16 ks + 2 q; each 16-bit load holds columns nl and nl + 1,
-    // and two of them (k and k + 1) make one word of four values.
     uint32_t af[4][4];
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const unsigned char* row = ws + (16 * ks + 2 * q) * kWRow;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {   // k = c + 8 e and c + 8 e + 1
-        const uint32_t w2 =
-            __byte_perm(*reinterpret_cast<const uint16_t*>(row + 8 * e * kWRow),
-                        *reinterpret_cast<const uint16_t*>(row + (8 * e + 1) * kWRow),
-                        0x5410) ^ 0x80808080u;
-        af[ks][2 * e] = pack_exact(i8_to_f32(w2, 0x5440), i8_to_f32(w2, 0x5442));
-        af[ks][2 * e + 1] = pack_exact(i8_to_f32(w2, 0x5441), i8_to_f32(w2, 0x5443));
-      }
-    }
+    for (int ks = 0; ks < 4; ++ks) st::int8::a_fragment(ws, kWRow, ks, q, af[ks]);
     st::fence_regs(acc);
     st::wgmma_fence();
 #pragma unroll

@@ -1,32 +1,18 @@
-// Tiles shared by the int8 kernels (int8_ffn.cu, and int8_matmul.cu's f32
-// path and its 16-byte check `vec_ok`): loads of
-// an activation tile and of an int8 weight tile converted to the operand
-// type in shared memory, and a block-wide accumulator C[BM x BN] += A B that
-// runs on the tensor cores (WMMA, bf16 in, f32 accumulate) for bf16
-// operands and as f32 FMAs for f32 operands. Accumulators live in
-// registers across the k loop. Blocks have kThreads = 128 threads.
+// Pieces shared by the int8 kernels (int8_matmul.cu and int8_ffn.cu).
+// bf16 paths: the 16-byte check `vec_ok` and the exact conversion of an
+// int8 slab in shared memory into wgmma A fragments (`a_fragment`). f32
+// paths: loads of an activation tile and of an int8 weight tile converted
+// to f32 in shared memory, and a block-wide accumulator C[BM x BN] += A B
+// of f32 FMAs whose values live in registers across the k loop. Blocks have
+// kThreads = 128 threads.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace st {
 namespace int8 {
 
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-
-template <typename T>
-__device__ __forceinline__ T to_t(float v);
-template <>
-__device__ __forceinline__ float to_t<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_t<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // dst[r][c] (leading dimension ld) = x[row0 + r][k0 + c] for r < BM, c < BK;
 // zero past m rows or k columns. x has row stride ldx (elements). `vec`:
@@ -52,7 +38,7 @@ __device__ __forceinline__ void load_x(T* dst, int ld, const T* x, long long ldx
   }
   for (int i = threadIdx.x; i < BM * BK; i += kThreads) {
     const int r = i / BK, c = i - r * BK;
-    T v = to_t<T>(0.f);
+    T v = T(0);
     if (row0 + r < m && k0 + c < k) v = x[(row0 + r) * ldx + k0 + c];
     dst[r * ld + c] = v;
   }
@@ -64,6 +50,41 @@ template <typename T>
 inline bool vec_ok(const void* p, long long cols, long long ld) {
   constexpr long long kPer = 16 / sizeof(T);
   return cols % kPer == 0 && ld % kPer == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The int8 value v in the byte of `flipped` (four bytes, sign bits
+// flipped) that `byte_sel` picks, as an exact f32: v + 128 is the low byte
+// of the float 2^23 + (v + 128), and the subtraction is exact. A byte
+// permute and an add, not the slow conversion pipe.
+__device__ __forceinline__ float i8_to_f32(uint32_t flipped, uint32_t byte_sel) {
+  return __uint_as_float(__byte_perm(flipped, 0x4B00u, byte_sel)) - 8388736.f;
+}
+
+// bf16x2 {lo, hi} of two small integers held exactly in f32: their upper
+// halves (the lower 16 bits are zero).
+__device__ __forceinline__ uint32_t pack_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// The bf16 A fragment of wgmma k-step ks (registers {row lo, row hi} x
+// {k c, c + 8}, c = 16 ks + 2 q, q = lane % 4) from an int8 slab in shared
+// memory whose rows are the K index (`row_bytes` apart) and whose columns
+// are the M index. `col` points at this thread's two neighbouring columns
+// in row 0: the bf16 kernels permute wgmma's M rows so that a thread's two
+// rows are neighbouring weight columns, so one 16-bit load holds both at
+// one k, and two loads (k and k + 1) make one word of four values.
+__device__ __forceinline__ void a_fragment(const unsigned char* col, uint32_t row_bytes,
+                                           int ks, int q, uint32_t (&af)[4]) {
+  const unsigned char* row = col + (16 * ks + 2 * q) * row_bytes;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {   // k = 16 ks + 2 q + 8 e and the one after
+    const uint32_t w2 =
+        __byte_perm(*reinterpret_cast<const uint16_t*>(row + 8 * e * row_bytes),
+                    *reinterpret_cast<const uint16_t*>(row + (8 * e + 1) * row_bytes),
+                    0x5410) ^ 0x80808080u;
+    af[2 * e] = pack_exact(i8_to_f32(w2, 0x5440), i8_to_f32(w2, 0x5442));
+    af[2 * e + 1] = pack_exact(i8_to_f32(w2, 0x5441), i8_to_f32(w2, 0x5443));
+  }
 }
 
 // dst[r][c] = T(w[k0 + r][n0 + c]) for r < BK, c < BN; zero past k rows or
@@ -85,7 +106,7 @@ __device__ __forceinline__ void load_w(T* dst, int ld, const int8_t* w, int k0,
         raw = *reinterpret_cast<const int4*>(w + (long long)(k0 + r) * n + n0 + c);
       const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) dst[r * ld + c + j] = to_t<T>(static_cast<float>(b[j]));
+      for (int j = 0; j < 16; ++j) dst[r * ld + c + j] = static_cast<T>(b[j]);
     }
     return;
   }
@@ -93,7 +114,7 @@ __device__ __forceinline__ void load_w(T* dst, int ld, const int8_t* w, int k0,
     const int r = i / BN, c = i - r * BN;
     float v = 0.f;
     if (k0 + r < k && n0 + c < n) v = static_cast<float>(w[(long long)(k0 + r) * n + n0 + c]);
-    dst[r * ld + c] = to_t<T>(v);
+    dst[r * ld + c] = static_cast<T>(v);
   }
 }
 
@@ -103,51 +124,7 @@ __device__ __forceinline__ void load_w(T* dst, int ld, const int8_t* w, int k0,
 template <typename T, int BM, int BN>
 struct Acc;
 
-template <int BM, int BN>
-struct Acc<__nv_bfloat16, BM, BN> {
-  static constexpr int kTilesN = BN / 16;
-  static constexpr int kTiles = (BM / 16) * kTilesN / kWarps;
-  static_assert((BM / 16) * kTilesN % kWarps == 0, "tiles must split over the warps");
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> c[kTiles];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < kTiles; ++i) nvcuda::wmma::fill_fragment(c[i], 0.f);
-  }
-
-  template <int BK>
-  __device__ __forceinline__ void mma(const __nv_bfloat16* A, int lda,
-                                      const __nv_bfloat16* B, int ldb) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int i = 0; i < kTiles; ++i) {
-      const int tile = warp + kWarps * i;
-      const int ti = (tile / kTilesN) * 16, tj = (tile % kTilesN) * 16;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, A + ti * lda + kk, lda);
-        wmma::load_matrix_sync(b, B + kk * ldb + tj, ldb);
-        wmma::mma_sync(c[i], a, b, c[i]);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* C, int ldc) {
-    const int warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int i = 0; i < kTiles; ++i) {
-      const int tile = warp + kWarps * i;
-      const int ti = (tile / kTilesN) * 16, tj = (tile % kTilesN) * 16;
-      nvcuda::wmma::store_matrix_sync(C + ti * ldc + tj, c[i], ldc,
-                                      nvcuda::wmma::mem_row_major);
-    }
-  }
-};
-
-// f32: thread t owns column t % BN of rows t / BN + kRowStep * i; a warp
+// Thread t owns column t % BN of rows t / BN + kRowStep * i; a warp
 // reads one A value (broadcast) and 32 neighbouring B values per k.
 template <int BM, int BN>
 struct Acc<float, BM, BN> {

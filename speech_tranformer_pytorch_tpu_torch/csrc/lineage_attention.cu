@@ -8,21 +8,41 @@
 //   w      = softmax(s) in float32, then rounded to the cache dtype
 //   out    = sum_j w[j] * Vc[b*K + lineage[b,k,j], j, h]   (f32 accumulation)
 // Positions after `index` are never read (the reference masks them to
-// -1e9, which contributes exactly 0 to the softmax).
+// -1e9, which contributes exactly 0 to the softmax). Out-of-range lanes in
+// the table are clamped to [0, K), so a bad table never reads outside the
+// utterance's cache rows.
 //
-// One block per (beam row, head); its warps take positions in turn, each
-// lane holding D/32 query elements in registers, so every cache row is read
-// straight from its native [B*K, L, H, D] layout with no gather and no
-// relayout. What bounds it on an H100: bytes — each cache entry the beams
-// select is read once for 4*D f32 operations.
+// Design. One block of 4 warps per (beam row, head) reads the cache in its
+// native [B*K, L, H, D] layout, with no gather and no relayout. A cache
+// row is read by a group of `lpr` lanes, 16 bytes a lane (8 bf16: eight
+// lanes cover a D = 64 row, so a warp reads four positions with one
+// instruction). Each group takes every `groups`-th position and keeps
+// kR of them in flight: it reads their lineage entries, then issues all
+// their K rows and (for the first kR) their V rows before it uses any, so
+// the whole score pass at index < 64 (bf16, D = 64) is two dependent
+// memory round trips. Dot products are summed within the group (3
+// shuffles at lpr = 8). The softmax runs over the block (two reductions),
+// the weights are rounded to the cache dtype after normalisation as the
+// reference does, and the AV pass reuses the V rows already in registers
+// (later batches, at index >= 64, read theirs then). The sum over
+// positions runs in a fixed order, so outputs are bit-identical run to run.
+// Rows whose D is not a multiple of 16 bytes, or that sit off the 16-byte
+// grid, take one element a lane per load instead.
+//
+// What bounds it on an H100: bytes (each selected cache entry read once,
+// about 4*D f32 operations per entry). The kernel is latency-bound above
+// that: launch, the lineage read, one round trip for the K and V rows, and
+// four block barriers for the softmax, in series.
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kMaxChunks = 8;   // head_dim <= 256
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxD = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -36,106 +56,204 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+// kVec consecutive elements of a row, moved with one load.
+template <typename T, int kVec>
+struct alignas(kVec * sizeof(T)) Chunk {
+  T v[kVec];
+};
+
+// A lane holds chunks sub, sub + lpr, ... (kCpl of them) of each row it reads.
+template <typename T, int kVec, int kCpl>
+__global__ void __launch_bounds__(kThreads)
 lineage_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                          const T* __restrict__ vc, const int* __restrict__ lineage,
-                         T* __restrict__ out, int K, int L, int H, int D,
-                         int index, float sqrt_d) {
-  extern __shared__ float smem[];
-  float* w = smem;               // [index + 1] scores, then weights
-  float* partial = smem + L;     // [kWarps][D]
+                         T* __restrict__ out, int K, int L, int H, int D, int index,
+                         int lpr_log2, float sqrt_d) {
+  constexpr int kBytes = kVec * kCpl * static_cast<int>(sizeof(T));
+  constexpr int kR = kBytes <= 16 ? 4 : 2;   // positions a group keeps in flight
+  using C = Chunk<T, kVec>;
+  extern __shared__ float w[];               // [index + 1] scores, then weights
   __shared__ float red[32];
-  const int row = blockIdx.x;    // b*K + k
+  __shared__ float part[kWarps][kMaxD];
+  const int row = blockIdx.x;                // b*K + k
   const int h = blockIdx.y;
-  const int b = row / K;
+  const int base_lane = (row / K) * K;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lpr = 1 << lpr_log2;             // lanes a cache row
+  const int sub = lane & (lpr - 1);
+  const int per_warp = 32 >> lpr_log2;
+  const int group = warp * per_warp + (lane >> lpr_log2);
+  const int groups = kWarps * per_warp;
+  const int batch = kR * groups;
   const int n = index + 1;
   const int* lin = lineage + static_cast<size_t>(row) * L;   // [B, K, L] row
+  const size_t row_stride = static_cast<size_t>(H) * D;      // one position
+  const size_t lane_stride = static_cast<size_t>(L) * row_stride;
+  const T* kh = kc + static_cast<size_t>(h) * D;
+  const T* vh = vc + static_cast<size_t>(h) * D;
 
-  float qr[kMaxChunks];
+  bool has[kCpl];   // chunk i of this lane lies inside the row
+#pragma unroll
+  for (int i = 0; i < kCpl; ++i) has[i] = (sub + i * lpr) * kVec < D;
+  float qr[kCpl][kVec];
   const T* qp = q + (static_cast<size_t>(row) * H + h) * D;
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int d = lane + 32 * c;
-    qr[c] = d < D ? to_f(qp[d]) : 0.f;
+  for (int i = 0; i < kCpl; ++i) {
+    C c = {};
+    if (has[i]) c = *reinterpret_cast<const C*>(qp + (sub + i * lpr) * kVec);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) qr[i][e] = to_f(c.v[e]);
   }
 
-  for (int j = warp; j < n; j += kWarps) {
-    // The beam search only writes lanes in [0, K); clamp so a bad table
-    // can never read outside this utterance's cache rows.
-    const int src = b * K + min(max(lin[j], 0), K - 1);
-    const T* kp = kc + ((static_cast<size_t>(src) * L + j) * H + h) * D;
-    float acc = 0.f;
+  // Offsets of the rows of batch `b0`: position j of slot u is
+  // b0 + u * groups + group, -1 past index.
+  auto offsets = [&](int b0, long long (&off)[kR]) {
+    int src[kR];
 #pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) acc = fmaf(qr[c], to_f(kp[d]), acc);
+    for (int u = 0; u < kR; ++u) {
+      const int j = b0 + u * groups + group;
+      src[u] = j < n ? min(max(lin[j], 0), K - 1) : -1;
     }
-    acc = st::warp_sum(acc);
-    if (lane == 0) w[j] = acc / sqrt_d;
+#pragma unroll
+    for (int u = 0; u < kR; ++u) {
+      const int j = b0 + u * groups + group;
+      off[u] = src[u] < 0 ? -1
+                          : static_cast<long long>(base_lane + src[u]) * lane_stride +
+                                static_cast<long long>(j) * row_stride;
+    }
+  };
+  auto load = [&](const T* base, const long long (&off)[kR], C (&dst)[kR][kCpl]) {
+#pragma unroll
+    for (int u = 0; u < kR; ++u)
+#pragma unroll
+      for (int i = 0; i < kCpl; ++i) {
+        dst[u][i] = C{};
+        if (off[u] >= 0 && has[i])
+          dst[u][i] = *reinterpret_cast<const C*>(base + off[u] + (sub + i * lpr) * kVec);
+      }
+  };
+
+  // Scores. The V rows of the first batch are read with its K rows.
+  C vr[kR][kCpl];
+  for (int b0 = 0; b0 < n; b0 += batch) {
+    long long off[kR];
+    offsets(b0, off);
+    C kr[kR][kCpl];
+    load(kh, off, kr);
+    if (b0 == 0) load(vh, off, vr);
+#pragma unroll
+    for (int u = 0; u < kR; ++u) {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < kCpl; ++i)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) dot = fmaf(qr[i][e], to_f(kr[u][i].v[e]), dot);
+      for (int o = lpr >> 1; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      const int j = b0 + u * groups + group;
+      if (sub == 0 && j < n) w[j] = dot / sqrt_d;
+    }
   }
   __syncthreads();
 
   float m = -INFINITY;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) m = fmaxf(m, w[j]);
+  for (int j = threadIdx.x; j < n; j += kThreads) m = fmaxf(m, w[j]);
   m = st::block_reduce<true>(m, red);
   float s = 0.f;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+  for (int j = threadIdx.x; j < n; j += kThreads) {
     const float e = expf(w[j] - m);
     w[j] = e;
     s += e;
   }
   s = st::block_reduce<false>(s, red);
-  for (int j = threadIdx.x; j < n; j += blockDim.x)
+  for (int j = threadIdx.x; j < n; j += kThreads)
     w[j] = to_f(from_f<T>(w[j] / s));   // weights in the cache dtype
   __syncthreads();
 
-  float acc[kMaxChunks];
+  // out = sum_j w[j] V[j], positions in the same slots as the scores.
+  float acc[kCpl][kVec];
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) acc[c] = 0.f;
-  for (int j = warp; j < n; j += kWarps) {
-    const int src = b * K + min(max(lin[j], 0), K - 1);
-    const T* vp = vc + ((static_cast<size_t>(src) * L + j) * H + h) * D;
-    const float wj = w[j];
+  for (int i = 0; i < kCpl; ++i)
 #pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) acc[c] = fmaf(wj, to_f(vp[d]), acc[c]);
+    for (int e = 0; e < kVec; ++e) acc[i][e] = 0.f;
+  for (int b0 = 0; b0 < n; b0 += batch) {
+    if (b0 > 0) {
+      long long off[kR];
+      offsets(b0, off);
+      load(vh, off, vr);
+    }
+#pragma unroll
+    for (int u = 0; u < kR; ++u) {
+      const int j = b0 + u * groups + group;
+      const float wj = j < n ? w[j] : 0.f;
+#pragma unroll
+      for (int i = 0; i < kCpl; ++i)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[i][e] = fmaf(wj, to_f(vr[u][i].v[e]), acc[i][e]);
     }
   }
+  // Sum over the groups of a warp, then over the warps.
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int d = lane + 32 * c;
-    if (d < D) partial[warp * D + d] = acc[c];
+  for (int i = 0; i < kCpl; ++i)
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+      for (int o = lpr; o < 32; o <<= 1)
+        acc[i][e] += __shfl_xor_sync(0xffffffffu, acc[i][e], o);
+  if (lane < lpr) {
+#pragma unroll
+    for (int i = 0; i < kCpl; ++i)
+      if (has[i])
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) part[warp][(sub + i * lpr) * kVec + e] = acc[i][e];
   }
   __syncthreads();
   T* op = out + (static_cast<size_t>(row) * H + h) * D;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+  for (int d = threadIdx.x; d < D; d += kThreads) {
     float o = 0.f;
 #pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) o += partial[wi * D + d];
+    for (int wi = 0; wi < kWarps; ++wi) o += part[wi][d];
     op[d] = from_f<T>(o);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lineage, void* out, int batch, int beams, int L,
-                   int H, int D, int index, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (L + kWarps * D);
+template <typename T, int kVec, int kCpl>
+cudaError_t launch_vec(const void* q, const void* k, const void* v, const int* lineage,
+                       void* out, int batch, int beams, int L, int H, int D, int index,
+                       cudaStream_t stream) {
+  // Lanes a row: the chunks of a row over kCpl, rounded up to a power of 2.
+  const int chunks = (D + kVec - 1) / kVec;
+  const int per_lane = (chunks + kCpl - 1) / kCpl;
+  int lpr_log2 = 0;
+  while ((1 << lpr_log2) < per_lane) ++lpr_log2;
+  if (lpr_log2 > 5) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (index + 1);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lineage_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lineage_attention_kernel<T, kVec, kCpl>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(batch * beams, H);
-  lineage_attention_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lineage, static_cast<T*>(out), beams, L, H, D,
-      index, static_cast<float>(sqrt(static_cast<double>(D))));
+  lineage_attention_kernel<T, kVec, kCpl><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lineage,
+      static_cast<T*>(out), beams, L, H, D, index, lpr_log2,
+      static_cast<float>(sqrt(static_cast<double>(D))));
   return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* lineage,
+                   void* out, int batch, int beams, int L, int H, int D, int index,
+                   cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = D % kVec == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  if (!vec)   // one element a load, up to 8 a lane: D <= 256
+    return launch_vec<T, 1, 8>(q, k, v, lineage, out, batch, beams, L, H, D, index, stream);
+  // bf16: D <= 256 is at most 32 chunks, one a lane; f32 up to two a lane.
+  constexpr int kCpl = sizeof(T) == 2 ? 1 : 2;
+  return launch_vec<T, kVec, kCpl>(q, k, v, lineage, out, batch, beams, L, H, D, index,
+                                   stream);
 }
 
 }  // namespace
@@ -145,7 +263,7 @@ extern "C" int st_lineage_attention(const void* q, const void* k, const void* v,
                                     int beams, int max_len, int heads,
                                     int head_dim, int index, int is_bf16,
                                     cudaStream_t stream) {
-  if (head_dim > 32 * kMaxChunks || index < 0 || index >= max_len)
+  if (head_dim < 1 || head_dim > kMaxD || index < 0 || index >= max_len)
     return cudaErrorInvalidValue;
   return is_bf16 ? launch<__nv_bfloat16>(q, k, v, lineage, out, batch, beams,
                                          max_len, heads, head_dim, index, stream)

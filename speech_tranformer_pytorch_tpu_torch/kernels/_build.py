@@ -65,8 +65,9 @@ SIGNATURES = {
     # x, wq, scale, y, m, k, n, ldx, rows, k_chunk, is_bf16, stream
     "st_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P],
     # x, w1q, s1, b1, w2q, s2, b2, y, partial, counters, m, k, ff, n, ldx,
-    # is_bf16, stream
-    "st_int8_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P],
+    # rows, hidden_tiles, col_tiles, ranks, is_bf16, stream
+    "st_int8_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I,
+                    _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

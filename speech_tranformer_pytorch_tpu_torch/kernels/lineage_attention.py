@@ -2,10 +2,16 @@
 
 Replaces the TPU kernel ``_kernel`` / ``lineage_attention``
 (speech_tranformer_pytorch_tpu/kernels/lineage_attention.py:43, :86). On
-Hopper it is the decode self-attention kernel of every beam step and layer.
-The kernel is ``csrc/lineage_attention.cu``; its header says what bounds it
-on an H100 (bytes: one read of the cache entries the beams select) and how
-it reads the cache in its native [B·K, L, H, D] layout without a gather.
+Hopper it is the decode self-attention kernel of every beam step and layer
+(and of every greedy step, at K = 1). The kernel is
+``csrc/lineage_attention.cu``. What bounds it on an H100 is the bytes (one
+read of the cache entries the beams select); the kernel sits above that,
+latency-bound. Its design: one block per (beam row, head) reading the cache
+in its native [B·K, L, H, D] layout, 16 bytes a lane (eight lanes a D = 64
+bf16 row), every K and V row of a batch of positions issued before any is
+used, so the decode shapes take two dependent memory round trips; scores
+and the softmax in f32, the weights rounded to the cache dtype after
+normalisation, and a fixed summation order (bit-identical run to run).
 """
 
 from __future__ import annotations

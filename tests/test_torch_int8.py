@@ -241,6 +241,40 @@ def test_int8_matmul_plan(m, k, n):
         assert blocks >= mm.TARGET_BLOCKS
 
 
+# The base decode shapes (beam 5, greedy), the large preset's, more than 64
+# rows, the ragged chip_smoke shape, and the sharded preset's d_ff 8192
+# (several hidden slices a rank).
+FFN_PLAN_SHAPES = [(40, 512, 2048, 512), (8, 512, 2048, 512), (40, 768, 3072, 768),
+                   (130, 512, 2048, 512), (7, 96, 200, 72), (40, 2048, 8192, 2048),
+                   (1, 256, 1024, 256)]
+
+
+@pytest.mark.parametrize("m,k,ff,n", FFN_PLAN_SHAPES)
+def test_int8_ffn_plan(m, k, ff, n):
+    """The bf16 kernel's clusters: rows of x a multiple of 8 that is
+    wgmma's N (<= 64) and every row in some row tile, hidden tiles the
+    kernel is built for, at most one cluster of ranks, the ranks' slices
+    covering ff (several slices a rank only when one cluster cannot, and
+    then no rank idle), two tiles of y a cluster only at few rows, and at
+    most one wave of blocks at the base decode shapes."""
+    from speech_tranformer_pytorch_tpu_torch.kernels import int8_ffn as ffn
+
+    rows, tiles, ranks, col_tiles = ffn.plan(m, k, ff, n)
+    assert rows % 8 == 0 and 8 <= rows <= ffn.MAX_ROWS
+    assert rows >= min(m, ffn.MAX_ROWS)
+    assert tiles in ffn.HIDDEN_TILES and 1 <= ranks <= ffn.MAX_RANKS
+    assert col_tiles == 1 or (col_tiles == 2 and rows <= ffn.MAX_COL_TILES_ROWS)
+    per_slice = 64 * tiles * ranks
+    slices = -(-ff // per_slice)
+    assert slices * per_slice >= ff
+    assert slices == 1 or (tiles == ffn.HIDDEN_TILES[-1]
+                           and slices == -(-ff // (64 * tiles * ffn.MAX_RANKS)))
+    assert (ranks - 1) * slices * 64 * tiles < ff   # no rank idle
+    blocks = -(-n // (ffn.BLOCK_COLS * col_tiles)) * -(-m // rows) * ranks
+    if (m, k, ff, n) in ((40, 512, 2048, 512), (8, 512, 2048, 512)):
+        assert 64 <= blocks <= 132
+
+
 def test_kernel_wrappers_refuse_cpu_tensors_and_bad_operands():
     """The kernel wrappers launch on CUDA tensors only (no fallback), and
     both routes check their operands before any launch."""

@@ -46,6 +46,11 @@ CASES = [
     ("bf16_cache", (2, 5, 32, 4, 64, 21), "bfloat16", 2e-2, None),
     ("cross_beam_ancestry", (1, 3, 12, 2, 32, 7), "float32", 2e-6,
      _shared_history(1, 3, 12, 7)),
+    # A cache longer than the base preset's 100 positions, and a beam-5
+    # shared history in bf16 (the chip_smoke.py cases at tiny widths).
+    ("long_cache", (1, 5, 256, 2, 32, 200), "float32", 2e-6, None),
+    ("bf16_shared_history", (2, 5, 32, 2, 64, 20), "bfloat16", 2e-2,
+     _shared_history(2, 5, 32, 20)),
 ]
 
 
