@@ -39,12 +39,20 @@ _L = ctypes.c_longlong
 _LP = ctypes.POINTER(ctypes.c_longlong)   # a host int64 array
 # C signatures: every entry point returns cudaError_t as int.
 SIGNATURES = {
+    # wave, window, twiddle, mel_index, mel_w, out, batch, num_samples,
+    # n_frames, frame_len, hop, fft_len, n_mels, n_weights, preemph,
+    # use_log, log_floor, stream
+    "st_stft_mel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F,
+                    _P],
     # wave, c_eff, s_eff, mel, out, batch, num_samples, n_frames,
     # frame_len, hop, n_bins, n_mels, use_log, log_floor, stream
-    "st_stft_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "st_stft_mel_dft": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # logits, alive, vals, idx, batch, beams, vocab, k2, pad_id, sos_id,
+    # stream
+    "st_beam_prune": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # logits, alive, row_vals, row_idx, vals, idx, batch, beams, vocab, k2,
     # pad_id, sos_id, stream
-    "st_beam_prune": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "st_beam_prune_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, lineage, out, batch, beams, max_len, heads, head_dim,
     # index, is_bf16, stream
     "st_lineage_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
