@@ -44,7 +44,17 @@ Phases (any failure exits non-zero before the final line):
   6. one float32 train step on 2 utterances, card against CPU
      (``train_card_vs_cpu``), and the overfit anchor: 300 steps of a small
      model on 10 synthetic utterances, then exact beam decoding;
-  7. one JSON line per kernel set, then ``{"ok": true, "device": ...}``.
+  7. serving and training from files (``manifest_path``): the ``base``
+     preset's ``Trainer`` on a WAV manifest (straight with dev evaluations
+     on a FLAC manifest, dev loss against the bare eval step and
+     ``work_dir/best`` checked; stopped at step 3 and resumed, params
+     compared; its steps/s against the bare step), then ``load_recognizer``
+     and ``decode_manifest`` of the FLAC manifest at beam 5, greedy (from
+     ``best``) and int8, with exact launches per step, batch and dev batch;
+     and the drive recipe (``drive_recipe``): ``prepare_cli``,
+     ``train_cli`` (straight, and halfway then ``--resume``) and
+     ``recognize_cli`` as child processes, ending in ``"cer": 0.0``;
+  8. one JSON line per kernel set, then ``{"ok": true, "device": ...}``.
 ``--phases`` runs a subset (the kernel checks need no main path); with no
 arguments every phase runs. Imports nothing of JAX or of the JAX package.
 """
@@ -670,8 +680,9 @@ def _row_rel_err(got, want) -> float:
 
 # Int8 matmul: the base decode shapes (B·K = 40 rows at beam 5, 8 greedy)
 # of the self qkv (n 1536) and the q / out projections (n 512), the cross
-# K/V projections of init_cache (B·S = 1192 rows), a wide layer, a single
-# row and a ragged one. Tolerances: f32 within 1e-5 of each row's largest
+# K/V projections of init_cache (B·S = 1192 rows), the same for
+# ``manifest_path``'s batches of 4 (20 rows at beam 5, init_cache 4·149 =
+# 596 rows), a wide layer, a single row and a ragged one. Tolerances: f32 within 1e-5 of each row's largest
 # value (summation order only); bf16 within one bf16 ulp of the plain
 # version's value (the same f32 value, rounded once to bf16) plus the same
 # 1e-5 of the row's largest value (outputs near 0 come from cancelling
@@ -680,7 +691,8 @@ def _row_rel_err(got, want) -> float:
 # a fixed order). The first four bf16 shapes and init_cache's are timed;
 # the kernels line reports the first.
 INT8_MATMUL_SHAPES = [(40, 512, 1536), (40, 512, 512), (8, 512, 1536), (8, 512, 512),
-                      (1192, 512, 512), (48, 2048, 6144), (1, 512, 512), (7, 96, 200)]
+                      (1192, 512, 512), (20, 512, 1536), (20, 512, 512), (596, 512, 512),
+                      (48, 2048, 6144), (1, 512, 512), (7, 96, 200)]
 INT8_MATMUL_TIMED = [(40, 512, 1536), (40, 512, 512), (8, 512, 1536), (1192, 512, 512)]
 
 
@@ -748,15 +760,16 @@ def check_int8_matmul(torch, dev):
     return rec
 
 
-# Fused int8 feed-forward: the base decode shapes (B·K = 40, greedy 8), the
-# `large` preset's (d_model 768, d_ff 3072), more than 64 rows (three row
-# tiles) and a ragged one. Tolerances: f32 within 1e-5 of each row's
+# Fused int8 feed-forward: the base decode shapes (B·K = 40, greedy 8, and
+# ``manifest_path``'s 20 at beam 5), the `large` preset's (d_model 768,
+# d_ff 3072), more than 64 rows (three row tiles) and a ragged one.
+# Tolerances: f32 within 1e-5 of each row's
 # largest value; bf16 within 1e-3 of it (the JAX kernel's bound: the hidden
 # layer is rounded to bf16 after differently ordered sums) plus one bf16
 # ulp of the output. Two calls on the same inputs must be bit-equal. The
 # two base decode shapes are timed; the kernels line reports the first.
-INT8_FFN_SHAPES = [(40, 512, 2048, 512), (8, 512, 2048, 512), (40, 768, 3072, 768),
-                   (130, 512, 2048, 512), (7, 96, 200, 72)]
+INT8_FFN_SHAPES = [(40, 512, 2048, 512), (8, 512, 2048, 512), (20, 512, 2048, 512),
+                   (40, 768, 3072, 768), (130, 512, 2048, 512), (7, 96, 200, 72)]
 INT8_FFN_TIMED = [(40, 512, 2048, 512), (8, 512, 2048, 512)]
 
 
@@ -1141,10 +1154,435 @@ def card_vs_cpu(torch, dev, params, audio, lens, int8: bool = False):
           report if int8 else report[f"beam_{DECODE['beam_size']}"]})
 
 
+# ---------------------------------------------------------------------------
+# Serving and training from files.
+
+MANIFEST_STEPS, MANIFEST_CKPT_EVERY = 6, 3
+# (name, int8, beam, checkpoint directory under the straight run's work dir)
+MANIFEST_DECODES = (("beam5", False, 5, "checkpoints"), ("greedy", False, 1, "best"),
+                    ("int8_beam5", True, 5, "checkpoints"))
+
+
+def _write_corpus(root, vocab_size):
+    """24 seeded int16 utterances of 4-6 s with 10-30 random tokens: 16 WAV
+    files for the train manifest, 8 FLAC files for the test manifest."""
+    import numpy as np
+
+    from speech_tranformer_pytorch_tpu_torch.data.flac import write_flac
+    from speech_tranformer_pytorch_tpu_torch.data.prepare import write_manifest, write_wav
+    from speech_tranformer_pytorch_tpu_torch.data.synthetic import make_utterances
+
+    audio, lens = make_utterances(24, min_seconds=4.0, max_seconds=6.0, seed=3)
+    rng = np.random.default_rng(4)
+    splits = {"train": [], "test": []}
+    for i, n in enumerate(lens):
+        pcm = audio[i, :n]
+        if i < 16:
+            path = f"{root}/u{i:02d}.wav"
+            write_wav(path, pcm / 32768.0)
+        else:
+            path = f"{root}/u{i:02d}.flac"
+            write_flac(path, pcm.astype(np.int32), 16000)
+        tokens = rng.integers(4, vocab_size, size=int(rng.integers(10, 31))).tolist()
+        splits["train" if i < 16 else "test"].append(
+            {"utt_id": f"u{i:02d}", "audio": path, "num_samples": int(n),
+             "sample_rate": 16000, "text": "", "tokens": tokens})
+    paths = {}
+    for split, entries in splits.items():
+        paths[split] = f"{root}/{split}.jsonl"
+        write_manifest(paths[split], entries)
+    return paths
+
+
+def _launch_delta(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _add(total, delta):
+    for k, v in delta.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _count_dev_eval(tr, total):
+    """Make ``tr``'s dev loss step and greedy dev decode check their exact
+    launches (adding them to ``total``): per dev batch, the loss takes 1
+    fbank and a flash forward per attention layer; the greedy decode 1
+    fbank, a flash forward per encoder layer and a lineage launch per
+    decoder layer and step. Each decode's steps go to
+    ``tr.dev_decode_steps``."""
+    from speech_tranformer_pytorch_tpu_torch import runner
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+
+    m, steps = tr.cfg.model, []
+    tr.dev_decode_steps = steps
+    eval_fn, greedy_batch, real_decode = tr.eval_fn, tr._greedy_batch, runner.greedy_decode
+
+    def greedy_decode(*args, **kwargs):
+        out = real_decode(*args, **kwargs)
+        steps.append(out.steps)
+        return out
+
+    def decode_batch(*args):
+        runner.greedy_decode = greedy_decode
+        try:
+            return greedy_batch(*args)
+        finally:
+            runner.greedy_decode = real_decode
+
+    def counted(name, fn, want_of):
+        def call(*args):
+            before = interface.launch_counts()
+            out = fn(*args)
+            delta = _launch_delta(before, interface.launch_counts())
+            want = dict({k: 0 for k in delta}, **want_of())
+            if delta != want:
+                raise AssertionError(f"dev {name}: launches {delta}, expected {want}")
+            _add(total, delta)
+            return out
+        return call
+
+    tr.eval_fn = counted("loss", eval_fn, lambda: {
+        "stft_mel": 1, "flash_fwd": m.num_encoder_layers + 2 * m.num_decoder_layers})
+    tr._greedy_batch = counted("greedy decode", decode_batch, lambda: {
+        "stft_mel": 1, "flash_fwd": m.num_encoder_layers,
+        "lineage_attention": m.num_decoder_layers * steps[-1]})
+
+
+def _trainer_run(torch, dev, cfg, work, paths, max_steps, total, resume=False,
+                 save=True, dev_manifest=None):
+    """A ``Trainer`` run to ``max_steps`` whose step function checks each
+    step's exact launches (adding them to ``total``); returns the trainer
+    and its steps per second from the first step's start to the last step's
+    end (the device synchronized only after the last step). ``save=False``
+    skips its checkpoint writes, so the time is the loop's alone. With
+    ``dev_manifest`` the dev evaluations run too (``_count_dev_eval``)."""
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.runner import Trainer
+
+    tr = Trainer(cfg, work_dir=work, train_manifest=paths["train"],
+                 dev_manifest=dev_manifest, resume=resume, device=dev)
+    if dev_manifest:
+        _count_dev_eval(tr, total)
+    inner, clock = tr.step_fn, {}
+
+    def step(state, abatch, seed):
+        clock.setdefault("t0", time.perf_counter())
+        before = interface.launch_counts()
+        state, m = inner(state, abatch, seed)
+        delta = _launch_delta(before, interface.launch_counts())
+        if delta != TRAIN_STEP_LAUNCHES:
+            raise AssertionError(f"Trainer step {state.step}: launches {delta}, "
+                                 f"expected {TRAIN_STEP_LAUNCHES}")
+        _add(total, delta)
+        if state.step == max_steps:
+            torch.cuda.synchronize()
+            clock["t1"] = time.perf_counter()
+        return state, m
+
+    tr.step_fn = step
+    if not save:
+        tr.ckpt.save = lambda *a, **kw: False
+    first = tr.state.step
+    tr.train(max_steps=max_steps)
+    return tr, (max_steps - first) / (clock["t1"] - clock["t0"])
+
+
+def _check_dev_eval(torch, tr, work, total):
+    """The straight run's dev evaluations: the last logged dev loss equals
+    the bare eval step's over the dev batches at the final weights (within
+    1e-5 relative: the same kernels on the same inputs), its greedy CER is
+    finite, and ``work/best`` holds the step of the best dev loss."""
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.runner import make_audio_eval_step
+    from speech_tranformer_pytorch_tpu_torch.utils.checkpoint import Checkpointer
+
+    with open(f"{work}/train_metrics.jsonl") as f:
+        devs = [r for r in map(json.loads, f) if "dev_loss" in r]
+    eval_step = make_audio_eval_step(tr.cfg)
+    loss = tokens = 0.0
+    for abatch in tr.dev_batcher.epoch(0):
+        before = interface.launch_counts()
+        m = eval_step(tr.state, abatch)
+        _add(total, _launch_delta(before, interface.launch_counts()))
+        n = float(m["tokens"])
+        loss, tokens = loss + float(m["loss"]) * n, tokens + n
+    bare = loss / tokens
+    last = devs[-1] if devs else {}
+    report = {"dev_evals_at_steps": [r["step"] for r in devs],
+              "dev_loss": last.get("dev_loss"), "bare_eval_loss": bare,
+              "dev_loss_rel_diff": abs(last.get("dev_loss", math.inf) - bare) / bare,
+              "dev_cer": last.get("dev_cer"), "greedy_steps": tr.dev_decode_steps,
+              "best_dev_step": tr.best_dev_step,
+              "best_saved_step": Checkpointer(f"{work}/best").latest_step()}
+    if not (last.get("step") == tr.state.step and report["dev_loss_rel_diff"] <= 1e-5
+            and math.isfinite(last.get("dev_cer", math.nan)) and tr.best_dev_step > 0
+            and report["best_saved_step"] == tr.best_dev_step):
+        raise AssertionError(f"Trainer dev evaluation: {report}")
+    return report
+
+
+def _leaf_diffs(torch, a, b):
+    """Per leaf: (max |a - b|, that over the leaf's largest |a|)."""
+    out = {}
+    for k, x in a.items():
+        d = float((x.float() - b[k].float()).abs().max())
+        out[k] = (d, d / max(float(x.float().abs().max()), 1e-30))
+    return out
+
+
+def _int8_shapes_checked(cfg, audio_shape, beam):
+    """A served batch's int8 products (B·beam rows in each decode step,
+    B·T' rows in init_cache's cross K/V) are among the checked shapes."""
+    import torch
+
+    from speech_tranformer_pytorch_tpu_torch.data.pipeline import _frames_for_samples
+    from speech_tranformer_pytorch_tpu_torch.models.modules import subsampled_lengths
+
+    m, (b, samples) = cfg.model, audio_shape
+    t_sub = int(subsampled_lengths(torch.tensor([_frames_for_samples(samples, cfg.features)]))[0])
+    d, rows = m.d_model, b * beam
+    mm = {(rows, d, 3 * d if m.fused_qkv else d), (rows, d, d), (b * t_sub, d, d)}
+    ffn = {(rows, d, m.d_ff, d)}
+    if not (mm <= set(INT8_MATMUL_SHAPES) and ffn <= set(INT8_FFN_SHAPES)):
+        raise AssertionError(f"int8 shapes {sorted(mm)} {sorted(ffn)} not all checked")
+
+
+def manifest_path(torch, dev):
+    """The base preset from files: a ``Trainer`` on a WAV manifest (straight,
+    with dev evaluations on the FLAC test manifest; and stopped at step 3
+    then resumed), then ``load_recognizer`` and ``decode_manifest`` of the
+    FLAC manifest at beam 5, greedily (from ``work_dir/best``) and with
+    int8 weights and cross-K/V cache, with exact launches per step and per
+    batch; the hypotheses equal ``decode_batch`` on the same batches."""
+    import tempfile
+
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.data.pipeline import (
+        BucketedBatcher, ManifestDataset, make_audio_train_step)
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.profile_decode import INT8
+    from speech_tranformer_pytorch_tpu_torch.recognize import load_recognizer
+    from speech_tranformer_pytorch_tpu_torch.train import create_train_state
+
+    cfg = get_config("base", **{"train.batch_size": 8, "train.num_epochs": 100,
+                                "train.log_every": 3, "train.eval_every_steps": 3,
+                                "train.checkpoint_every_steps": MANIFEST_CKPT_EVERY})
+    total, report = {k: 0 for k in TRAIN_STEP_LAUNCHES}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = _write_corpus(tmp, cfg.model.vocab_size)
+        straight, _ = _trainer_run(torch, dev, cfg, f"{tmp}/a", paths, MANIFEST_STEPS,
+                                   total, dev_manifest=paths["test"])
+        report["dev_eval"] = _check_dev_eval(torch, straight, f"{tmp}/a", total)
+        # The same batches through the bare step, then a second straight run
+        # timed the same way (both warm), then the stopped-and-resumed run.
+        batches, epoch = [], 0
+        while len(batches) < MANIFEST_STEPS:
+            batches += list(straight.batcher.epoch(epoch))
+            epoch += 1
+        batches = [b.to(dev) for b in batches[:MANIFEST_STEPS]]
+        state = create_train_state(cfg, device=dev, seed=cfg.train.seed)
+        bare_step = make_audio_train_step(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            before = interface.launch_counts()
+            state, _ = bare_step(state, b, straight.dropout_seed)
+            _add(total, _launch_delta(before, interface.launch_counts()))
+        torch.cuda.synchronize()
+        bare_sps = MANIFEST_STEPS / (time.perf_counter() - t0)
+        del state, batches
+        quiet = cfg.replace(train=cfg.train.replace(log_every=100))
+        again, trainer_sps = _trainer_run(torch, dev, quiet, f"{tmp}/c", paths,
+                                          MANIFEST_STEPS, total, save=False)
+        _trainer_run(torch, dev, cfg, f"{tmp}/b", paths, MANIFEST_CKPT_EVERY, total)
+        resumed, _ = _trainer_run(torch, dev, cfg, f"{tmp}/b", paths, MANIFEST_STEPS,
+                                  total, resume=True)
+        ref = straight.state.model.state_dict()
+        resume_diff = _leaf_diffs(torch, ref, resumed.state.model.state_dict())
+        rerun_diff = _leaf_diffs(torch, ref, again.state.model.state_dict())
+        moment_diff = {m: _leaf_diffs(torch, getattr(straight.state.opt, m),
+                                      getattr(resumed.state.opt, m)) for m in ("mu", "nu")}
+        exact = all(d == 0.0 for d, _ in resume_diff.values()) and all(
+            d == 0.0 for md in moment_diff.values() for d, _ in md.values())
+        worst = max(resume_diff.items(), key=lambda kv: kv[1][1])
+        report["train"] = {
+            "steps": MANIFEST_STEPS, "batch": cfg.train.batch_size,
+            "trainer_steps_per_s": trainer_sps, "bare_steps_per_s": bare_sps,
+            "trainer_over_bare": trainer_sps / bare_sps,
+            "resume_bit_identical": exact,
+            "resume_param_max_abs_diff": max(d for d, _ in resume_diff.values()),
+            "resume_worst_leaf": [worst[0], *worst[1]],
+            "rerun_bit_identical": all(d == 0.0 for d, _ in rerun_diff.values()),
+            "rerun_param_max_abs_diff": max(d for d, _ in rerun_diff.values()),
+            "launches_per_step": TRAIN_STEP_LAUNCHES}
+        del again, resumed
+        if not exact and worst[1][1] > 1e-5:
+            raise AssertionError(f"resumed params differ from the straight run's: "
+                                 f"{report['train']}")
+
+        ds = ManifestDataset(paths["test"], cfg.data, cfg.features)
+        batcher = BucketedBatcher(
+            ds, batch_size=4, bucket_boundaries=cfg.data.bucket_boundaries,
+            target_len=min(cfg.data.max_target_len, cfg.model.max_target_positions),
+            shuffle=False, drop_remainder=False,
+            adaptive_target_len=cfg.data.adaptive_target_len)
+        audio_s = sum(e["num_samples"] for e in ds.entries) / cfg.features.sample_rate
+        for name, int8, beam, ckpt in MANIFEST_DECODES:
+            dcfg = cfg.replace(decode=cfg.decode.replace(
+                **{k.split(".")[1]: v for k, v in INT8.items()})) if int8 else cfg
+            rec = load_recognizer(dcfg, f"{tmp}/a/{ckpt}", device=dev)
+            inner, calls = rec.decode_batch, []
+
+            def counted(audio, lens, *, beam_size, max_len, alpha, rec=rec, inner=inner,
+                        calls=calls, dcfg=dcfg, int8=int8):
+                if int8:
+                    _int8_shapes_checked(dcfg, audio.shape, beam_size)
+                before = interface.launch_counts()
+                hyps = inner(audio, lens, beam_size=beam_size, max_len=max_len, alpha=alpha)
+                delta = _launch_delta(before, interface.launch_counts())
+                want = expected_serve_launches(dcfg, rec.last_steps, int8, beam_size)
+                if rec.last_steps <= 0 or delta != want:
+                    raise AssertionError(f"{name}: batch launches {delta}, expected {want}")
+                _add(total, delta)
+                calls.append(rec.last_steps)
+                return hyps
+
+            rec.decode_batch = counted
+            out = f"{tmp}/{name}.jsonl"
+            scores = rec.decode_manifest(paths["test"], beam_size=beam, batch_size=4,
+                                         out_path=out)
+            rec.decode_batch = inner
+            with open(out) as f:
+                served = {r["utt_id"]: r["tokens"] for r in map(json.loads, f)}
+            direct = {}
+            for abatch, rows in batcher.epoch(0, with_rows=True):
+                hyps = inner(abatch.audio, abatch.sample_lens, beam_size=beam,
+                             max_len=dcfg.decode.max_decode_len,
+                             alpha=dcfg.decode.length_penalty)
+                direct.update({ds.entries[i]["utt_id"]: h for i, h in zip(rows, hyps)})
+            if served != direct:
+                raise AssertionError(f"{name}: decode_manifest and decode_batch differ")
+            if not (scores["utterances"] == len(ds) and math.isfinite(scores["cer"])
+                    and abs(scores["audio_seconds"] - audio_s) < 1e-9
+                    and scores["rtf"] > 0 and scores["rtf_with_compile"] > 0):
+                raise AssertionError(f"{name}: scores {scores}")
+            report[name] = {**scores, "batch_decode_steps": calls,
+                            "hyps_equal_decode_batch": True}
+            del rec
+    emit({"manifest_path": report})
+    return total
+
+
+RECIPE_STEPS = 400
+# The overfit anchor's model (tiny preset, d_model 128, 2+2 layers, dropout 0)
+# on its 10 synthetic utterances, all in each batch.
+RECIPE_SETS = {"model.d_model": 128, "model.num_heads": 4, "model.d_ff": 256,
+               "model.num_encoder_layers": 2, "model.num_decoder_layers": 2,
+               "model.dropout_rate": 0.0, "model.subsample_channels": 16,
+               "train.batch_size": 10, "train.num_epochs": RECIPE_STEPS,
+               "train.log_every": 50}
+_CLI_BOOT = ("import json, runpy, sys\n"
+             "from speech_tranformer_pytorch_tpu_torch.kernels import interface\n"
+             "sys.argv = sys.argv[1:]\n"
+             "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
+             "print('LAUNCHES ' + json.dumps(interface.launch_counts()), flush=True)\n")
+
+
+def run_cli(cli, args):
+    """``python -m <package>.<cli> args`` in a child process that prints its
+    kernel launches last; returns (stdout lines before that, launches)."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, "-c", _CLI_BOOT, f"{PKG}.{cli}", *args],
+                          cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{cli} {args} failed ({proc.returncode}): "
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    if not lines or not lines[-1].startswith("LAUNCHES "):
+        raise AssertionError(f"{cli}: no launch line in {lines[-5:]}")
+    return lines[:-1], json.loads(lines[-1][len("LAUNCHES "):])
+
+
+def _logged_losses(work):
+    with open(f"{work}/train_metrics.jsonl") as f:
+        return {r["step"]: r["loss"] for r in map(json.loads, f) if "loss" in r}
+
+
+def drive_recipe(torch, dev):
+    """The user recipe through the port's CLIs as child processes on the
+    card: prepare_cli synthetic -> train_cli (straight, and stopped halfway
+    then --resume'd) -> recognize_cli on the train split, which must print
+    ``"cer": 0.0``."""
+    import tempfile
+
+    layers = RECIPE_SETS["model.num_encoder_layers"] + 2 * RECIPE_SETS["model.num_decoder_layers"]
+    per_step = dict(TRAIN_STEP_LAUNCHES, flash_fwd=layers, flash_bwd_dkv=layers,
+                    flash_bwd_dq=layers)
+    total, report = {k: 0 for k in TRAIN_STEP_LAUNCHES}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = f"{tmp}/data"
+        t0 = time.perf_counter()
+        run_cli("prepare_cli", ["synthetic", "--out", data, "--num-train", "10",
+                                "--num-dev", "0", "--num-test", "0", "--vocab-size", "32",
+                                "--seed", "0", "--device", dev.type])
+        common = ["--preset", "tiny", "--data-dir", data, "--device", dev.type]
+        common += [a for k, v in RECIPE_SETS.items() for a in ("--set", f"{k}={v}")]
+        runs = (("straight", "a", [], RECIPE_STEPS),
+                ("first_half", "b", [], RECIPE_STEPS // 2),
+                ("resumed", "b", ["--resume"], RECIPE_STEPS))
+        done = 0
+        for name, work, extra, steps in runs:
+            t1 = time.perf_counter()
+            _, launches = run_cli("train_cli", common + ["--work-dir", f"{tmp}/{work}",
+                                                         "--max-steps", str(steps)] + extra)
+            want = {k: v * (steps - done) for k, v in per_step.items()}
+            done = steps if name == "first_half" else 0
+            if launches != want:
+                raise AssertionError(f"train_cli {name}: launches {launches}, "
+                                     f"expected {want}")
+            _add(total, launches)
+            report[f"train_{name}_s"] = time.perf_counter() - t1
+        la, lb = _logged_losses(f"{tmp}/a"), _logged_losses(f"{tmp}/b")
+        report["logged_loss"] = {step: [la[step], lb.get(step)] for step in la}
+        last = max(la)
+        rel = abs(la[last] - lb.get(last, math.inf)) / abs(la[last])
+        report["final_loss_rel_diff"] = rel
+        if last != RECIPE_STEPS or rel > 1e-2:
+            raise AssertionError(f"resumed recipe differs: {report}")
+        t1 = time.perf_counter()
+        lines, launches = run_cli("recognize_cli", ["--data-dir", data, "--work-dir",
+                                                    f"{tmp}/a", "--split", "train",
+                                                    "--device", dev.type])
+        scores = json.loads(lines[-1])
+        report["recognize_s"] = time.perf_counter() - t1
+        report["recognize"] = scores
+        # One batch of 10, decoded twice (its first call, then again for the
+        # steady-state RTF): per call 1 fbank and 2 encoder flash launches;
+        # per beam step 1 prune and 2 lineage launches.
+        calls = 2
+        want = dict({k: 0 for k in launches}, stft_mel=calls,
+                    flash_fwd=RECIPE_SETS["model.num_encoder_layers"] * calls,
+                    beam_prune=launches["beam_prune"],
+                    lineage_attention=RECIPE_SETS["model.num_decoder_layers"]
+                    * launches["beam_prune"])
+        if launches != want or launches["beam_prune"] < calls:
+            raise AssertionError(f"recognize_cli launches {launches}, expected {want}")
+        _add(total, launches)
+        report["wall_s"] = time.perf_counter() - t0
+        emit({"drive_recipe": report})
+        if scores.get("cer") != 0.0 or scores.get("utterances") != 10.0:
+            raise AssertionError(f"recognize_cli on the train split: {scores}")
+    return total
+
+
 CHECKS = ("check_fbank", "check_beam_prune", "check_lineage", "check_flash",
           "check_adam", "check_int8_matmul", "check_int8_ffn")
 PHASES = CHECKS + ("main_path", "card_vs_cpu", "int8_path", "int8_card_vs_cpu",
-                   "train_path", "train_card_vs_cpu", "overfit_anchor")
+                   "train_path", "train_card_vs_cpu", "overfit_anchor",
+                   "manifest_path", "drive_recipe")
 
 
 def main() -> int:
@@ -1186,7 +1624,7 @@ def main() -> int:
             out = globals()[name](torch, dev)
             recs += out if isinstance(out, list) else [out]
             emit({"phase_s": {name: time.perf_counter() - t0}})
-    counts = {"serve": {}, "serve_int8": {}, "train": {}}
+    counts = {"serve": {}, "serve_int8": {}, "train": {}, "manifest": {}, "recipe": {}}
     for path, int8 in (("serve", False), ("serve_int8", True)):
         name = "int8_path" if int8 else "main_path"
         if name in phases:
@@ -1201,6 +1639,11 @@ def main() -> int:
         if name in phases:
             t0 = time.perf_counter()
             globals()[name](torch, dev)
+            emit({"phase_s": {name: time.perf_counter() - t0}})
+    for path, name in (("manifest", "manifest_path"), ("recipe", "drive_recipe")):
+        if name in phases:
+            t0 = time.perf_counter()
+            counts[path] = globals()[name](torch, dev)
             emit({"phase_s": {name: time.perf_counter() - t0}})
 
     kernels = []

@@ -262,6 +262,23 @@ class ExperimentConfig:
         return self
 
 
+def config_from_dict(d: dict) -> ExperimentConfig:
+    """Inverse of ``ExperimentConfig.to_dict`` (a run's ``config.json``):
+    unknown keys are ignored and lists become tuples."""
+    sections = {
+        "features": FeatureConfig, "spec_augment": SpecAugmentConfig,
+        "model": ModelConfig, "train": TrainConfig, "data": DataConfig,
+        "decode": DecodeConfig, "mesh": MeshConfig,
+    }
+    kw: dict = {"name": d.get("name", "custom")}
+    for key, cls in sections.items():
+        if key in d:
+            fields = {f.name for f in dataclasses.fields(cls)}
+            kw[key] = cls(**{k: (tuple(v) if isinstance(v, list) else v)
+                             for k, v in d[key].items() if k in fields})
+    return ExperimentConfig(**kw)
+
+
 def _nested_replace(cfg: Any, dotted: str, value: Any) -> Any:
     """Apply one ``section.field=value`` override."""
     parts = dotted.split(".")

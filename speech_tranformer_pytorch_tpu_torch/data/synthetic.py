@@ -13,6 +13,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .tokenizer import EOS, PAD, SOS
+
 
 def make_utterances(num: int, *, min_seconds: float, max_seconds: float,
                     sample_rate: int = 16000, seed: int = 0,
@@ -39,7 +41,6 @@ def make_utterances(num: int, *, min_seconds: float, max_seconds: float,
 # data/synthetic.py), so a tiny model learns audio -> text in a few hundred
 # steps.
 
-PAD, SOS, EOS, UNK = 0, 1, 2, 3
 NUM_SPECIALS = 4
 
 

@@ -20,13 +20,12 @@ from typing import List
 
 import torch
 
+from ..data.tokenizer import EOS, PAD, SOS
 from ..device import DeviceLike, resolve_device
 from ..kernels import interface
 from ..models import SpeechTransformer
 from ..ops.masks import NEG_INF
 from ..ops.topk import topk_stable
-
-PAD, SOS, EOS = 0, 1, 2
 
 
 def length_penalty(lengths: torch.Tensor, alpha: float) -> torch.Tensor:

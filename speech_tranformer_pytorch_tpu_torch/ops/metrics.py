@@ -1,5 +1,6 @@
-"""CER scoring by edit distance, in pure Python (the JAX package's
-``ops/metrics.py`` counterpart without its optional native library)."""
+"""CER and WER scoring by edit distance, in pure Python (the JAX package's
+``ops/metrics.py`` counterpart without its optional native library, which
+waits in ROADMAP queue A)."""
 
 from __future__ import annotations
 
@@ -38,3 +39,18 @@ def cer(refs: List[Sequence[int]], hyps: List[Sequence[int]]) -> Dict[str, float
         "errors": float(errors),
         "ref_tokens": float(total),
     }
+
+
+def wer(ref_words: List[Sequence[str]], hyp_words: List[Sequence[str]]
+        ) -> Dict[str, float]:
+    """Word error rate: each pair's words are numbered, then scored as
+    ``cer`` scores tokens. Returns ``wer`` (%), ``errors`` and ``ref_tokens``."""
+    refs_ids, hyps_ids = [], []
+    for r, h in zip(ref_words, hyp_words):
+        vocab: Dict[str, int] = {}
+        ids = lambda ws: [vocab.setdefault(w, len(vocab)) for w in ws]
+        refs_ids.append(ids(list(r)))
+        hyps_ids.append(ids(list(h)))
+    out = cer(refs_ids, hyps_ids)
+    out["wer"] = out.pop("cer")
+    return out

@@ -1,26 +1,37 @@
-"""Batch recognizer (counterpart of the JAX package's ``recognize.py``):
-int16 PCM -> fbank + CMVN -> encoder -> beam search (greedy at beam 1) ->
-best hypotheses with <eos> removed."""
+"""Recognizer (counterpart of the JAX package's ``recognize.py``): int16
+PCM -> fbank + CMVN -> encoder -> beam search (greedy at beam 1) -> best
+hypotheses with <eos> removed; ``decode_manifest`` decodes a manifest in
+length buckets and scores it by CER (and WER for a BPE vocabulary) and
+real-time factor; ``load_recognizer`` serves a checkpoint."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Union
+import json
+import time
+from typing import Dict, List, Optional, Union
 
 import torch
 
 from .config import ExperimentConfig
 from .data.features import extract_features
+from .data.pipeline import (BucketedBatcher, ManifestDataset, _frames_for_samples)
+from .data.tokenizer import EOS, load_tokenizer
 from .decoding import (BeamResult, GreedyResult, beam_decode, best_hypotheses,
                        greedy_decode, tokens_to_lists)
-from .decoding.beam import EOS
 from .device import DeviceLike, resolve_device
 from .models import SpeechTransformer
+from .models.modules import subsampled_lengths
+from .ops.metrics import cer, wer
 from .ops.quantize import decode_model, quantize_params
+from .utils.checkpoint import Checkpointer
+
+_NOT_PORTED = ("mesh and distributed decoding are not ported yet "
+               "(ROADMAP queue A item 6, parallelism)")
 
 
 class Recognizer:
     def __init__(self, cfg: ExperimentConfig, params: Dict[str, torch.Tensor], *,
-                 device: DeviceLike = None):
+                 tokenizer=None, device: DeviceLike = None, mesh=None):
         """``params`` is a float32 ``state_dict`` of ``SpeechTransformer``
         (``convert.params_from_jax`` makes one from a JAX checkpoint tree).
         The model lives on ``device`` (CUDA unless the caller asks for the
@@ -31,8 +42,12 @@ class Recognizer:
         params (per-row int8 embedding included) and served by
         ``ops.quantize.decode_model``: encoder dequantized once, decoder
         dense layers on the int8 kernels. ``decode.int8_kv_cache``: int8
-        cross K/V cache."""
+        cross K/V cache. ``tokenizer`` turns hypotheses into text for
+        ``decode_manifest``'s output file and WER."""
+        if mesh is not None:
+            raise NotImplementedError(_NOT_PORTED)
         self.cfg = cfg
+        self.tokenizer = tokenizer
         self.device = resolve_device(device)
         dt = getattr(torch, cfg.model.dtype)
         self.int8_kv = bool(cfg.decode.int8_kv_cache)
@@ -74,3 +89,112 @@ class Recognizer:
         hyps = (tokens_to_lists(result) if isinstance(result, GreedyResult)
                 else best_hypotheses(result))
         return [[x for x in h if x != EOS] for h in hyps]
+
+    def decode_manifest(self, manifest_path: str, *, beam_size: Optional[int] = None,
+                        max_len: Optional[int] = None, alpha: Optional[float] = None,
+                        batch_size: int = 16, max_frames_per_batch: int = 0,
+                        out_path: Optional[str] = None,
+                        distributed: bool = False) -> Dict[str, float]:
+        """Decode and score a manifest, in the JAX ``decode_manifest``'s
+        length buckets and order. Returns ``cer`` (with ``errors`` and
+        ``ref_tokens``), ``wer`` for a BPE tokenizer, ``rtf`` (decode wall
+        time over audio time, first call of each batch shape and decode
+        setting left out), ``rtf_with_compile`` (every call),
+        ``audio_seconds`` and ``utterances``. On a card the first call of a
+        shape pays one-time costs (library handles and algorithm choices,
+        allocator growth), as JAX's pays its compile; when every batch was
+        a first call, the epoch runs again for ``rtf``. ``out_path`` gets
+        one JSON line an utterance."""
+        if distributed:
+            raise NotImplementedError(_NOT_PORTED)
+        d = self.cfg.decode
+        beam_size = beam_size if beam_size is not None else d.beam_size
+        max_len = max_len if max_len is not None else d.max_decode_len
+        alpha = alpha if alpha is not None else d.length_penalty
+
+        ds = ManifestDataset(manifest_path, self.cfg.data, self.cfg.features)
+        batcher = BucketedBatcher(
+            ds, batch_size=batch_size, bucket_boundaries=self.cfg.data.bucket_boundaries,
+            target_len=min(self.cfg.data.max_target_len,
+                           self.cfg.model.max_target_positions),
+            shuffle=False, drop_remainder=False,
+            max_frames_per_batch=max_frames_per_batch,
+            adaptive_target_len=self.cfg.data.adaptive_target_len)
+
+        def batch_max_len(abatch) -> int:
+            """Decode steps for the batch: ``max_len``, or with
+            ``max_len_ratio`` that ratio of the bucket's encoder frames
+            (the encoder's exact subsampled length), at least 4."""
+            if d.max_len_ratio <= 0:
+                return max_len
+            frames = _frames_for_samples(int(abatch.audio.shape[1]), self.cfg.features)
+            enc_frames = int(subsampled_lengths(torch.tensor(frames)))
+            return max(4, min(max_len, int(d.max_len_ratio * enc_frames)))
+
+        def decode(abatch, rows):
+            """The batch's hypotheses for its manifest rows (padding rows
+            dropped) and the decode wall time, device work included."""
+            bml = batch_max_len(abatch)
+            t0 = time.perf_counter()
+            hyps = self.decode_batch(abatch.audio, abatch.sample_lens,
+                                     beam_size=beam_size, max_len=bml, alpha=alpha)
+            return hyps[:len(rows)], time.perf_counter() - t0, bml
+
+        sr = self.cfg.features.sample_rate
+        refs, hyps, utt_ids, ref_rows = [], [], [], []
+        audio_total = t_total = audio_steady = t_steady = 0.0
+        seen = set()
+        for abatch, rows in batcher.epoch(0, with_rows=True):
+            out, dt, bml = decode(abatch, rows)
+            batch_audio = sum(ds.entries[i]["num_samples"] for i in rows) / sr
+            t_total += dt
+            audio_total += batch_audio
+            key = (tuple(abatch.audio.shape), beam_size, bml, alpha)
+            if key in seen:
+                t_steady += dt
+                audio_steady += batch_audio
+            else:
+                seen.add(key)
+            for idx, h in zip(rows, out):
+                e = ds.entries[idx]
+                refs.append(e["tokens"])
+                ref_rows.append(idx)
+                hyps.append(h)
+                utt_ids.append(e["utt_id"])
+
+        if audio_steady == 0.0 and audio_total > 0.0:
+            for abatch, rows in batcher.epoch(0, with_rows=True):
+                _, dt, _ = decode(abatch, rows)
+                t_steady += dt
+                audio_steady += sum(ds.entries[i]["num_samples"] for i in rows) / sr
+
+        scores = cer(refs, hyps)
+        if self.tokenizer is not None and hasattr(self.tokenizer, "merges"):
+            # BPE outputs: word error rate against the manifest's text (the
+            # token-level ``cer`` stays as the subword error rate).
+            ref_words = [ds.entries[i]["text"].split() for i in ref_rows]
+            hyp_words = [self.tokenizer.decode(h).split() for h in hyps]
+            scores["wer"] = wer(ref_words, hyp_words)["wer"]
+        scores["rtf"] = t_steady / max(audio_steady, 1e-9)
+        scores["rtf_with_compile"] = t_total / max(audio_total, 1e-9)
+        scores["audio_seconds"] = audio_total
+        scores["utterances"] = float(len(hyps))
+
+        if out_path:
+            with open(out_path, "w", encoding="utf-8") as f:
+                for uid, h in zip(utt_ids, hyps):
+                    text = self.tokenizer.decode(h) if self.tokenizer is not None else ""
+                    f.write(json.dumps({"utt_id": uid, "tokens": h, "text": text},
+                                       ensure_ascii=False) + "\n")
+        return scores
+
+
+def load_recognizer(cfg: ExperimentConfig, checkpoint_dir: str, *,
+                    vocab_path: Optional[str] = None,
+                    device: DeviceLike = None) -> Recognizer:
+    """A ``Recognizer`` on ``device`` (CUDA unless the caller asks for the
+    CPU) serving the latest checkpoint in ``checkpoint_dir``."""
+    dev = resolve_device(device)
+    _, restored = Checkpointer(checkpoint_dir).restore(device="cpu")
+    tok = load_tokenizer(vocab_path) if vocab_path else None
+    return Recognizer(cfg, restored.params, tokenizer=tok, device=dev)
