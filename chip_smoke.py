@@ -9,7 +9,8 @@ Phases (any failure exits non-zero before the final line):
      and check each against its plain PyTorch version on the card, at the
      main paths' shapes, with timings (CUDA events) and the roofline bound:
      fbank (``check_fbank``: the FFT kernel at the serving and train
-     batches, hann without pre-emphasis or log, hamming, an all-zero
+     batches and the ``large`` train batch (96 utterances of 20-30 s),
+     hann without pre-emphasis or log, hamming, an all-zero
      utterance, a partial last tile, and the DFT kernel at fft_length 400;
      every case bit-identical on a second call; timed at both batches),
      beam prune (``check_beam_prune``: the JAX goldens' tie, dead-row and
@@ -18,10 +19,13 @@ Phases (any failure exits non-zero before the final line):
      bit-identical on a second call; one device kernel a call on the main
      shape), lineage attention (beam 5, a shared history,
      L 256 and K = 1), flash attention forward, dK/dV and dQ
-     (``check_flash``: the train shapes,
+     (``check_flash``: the ``base`` and ``large`` train shapes,
      zero-length rows, D 20, T' 750 and D 128, causal and not, and the
      bf16 forward and backward bit-identical on a second call), the fused
-     Adam (``check_adam``), the int8 matmul (``check_int8_matmul``: every
+     Adam (``check_adam``: at the ``base`` tree and, classic and with its
+     master-weights variant, at the ``large`` tree; the variant
+     bit-identical to its plain version and run to run),
+     the int8 matmul (``check_int8_matmul``: every
      shape bit-identical on a second call, timed at the decode and
      ``init_cache`` shapes) and the fused int8 feed-forward
      (``check_int8_ffn``: every shape bit-identical on a second call,
@@ -40,7 +44,15 @@ Phases (any failure exits non-zero before the final line):
      must be identical and the first step's logits within 1e-3;
   5. the train main path (``train_path``): 3 + 10 steps of the ``base``
      preset (full width and depth, bf16 over f32 masters, dropout 0.1) on
-     64 int16 utterances, with exact per-step launch counts;
+     64 int16 utterances, with exact per-step launch counts; then the
+     ``large`` preset's (``large_train_path``: full width and depth,
+     SpecAugment, layer remat, dropout 0.1, 96 utterances of 20-30 s; 3 +
+     10 steps with exact launches; SpecAugment's budgets at step 0; remat
+     on against off, loss bit-identical and gradients within 1e-5 of each
+     leaf's largest; 3 steps with master weights, the f32 master
+     bit-identical to the classic f32 parameters, device events of each;
+     ``large`` with master weights and ``librispeech`` through the
+     ``Trainer``; each of these runs reports its own launches);
   6. one float32 train step on 2 utterances, card against CPU
      (``train_card_vs_cpu``), and the overfit anchor: 300 steps of a small
      model on 10 synthetic utterances, then exact beam decoding;
@@ -61,6 +73,7 @@ arguments every phase runs. Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -156,11 +169,12 @@ def check_fbank(torch, dev):
     serve = to_wave(smoke_audio()[0])         # the served batch's utterances
     train = to_wave(smoke_audio_batch(cfg, cfg.train.batch_size,
                                       device=torch.device("cpu")).audio)
+    large = to_wave(_large_audio(torch).audio)   # large_train_path's utterances
     zero = serve.clone()
     zero[3] = 0.0
     g = torch.Generator().manual_seed(8)
     ragged = (torch.randn(3, 6167, generator=g) * 0.1).to(dev)
-    cases = [("serve", serve, fcfg), ("train", train, fcfg),
+    cases = [("serve", serve, fcfg), ("train", train, fcfg), ("train_large", large, fcfg),
              ("hann,no_preemph,no_log", serve,
               fcfg.replace(window="hann", preemphasis=0.0, use_log=False)),
              ("hamming", serve, fcfg.replace(window="hamming")),
@@ -192,7 +206,7 @@ def check_fbank(torch, dev):
         if not rec["second_call_bit_equal"]:
             raise AssertionError(f"{tag}: differs on a second call")
     timed = {}
-    for name, wave in (("serve", serve), ("train", train)):
+    for name, wave in (("serve", serve), ("train", train), ("train_large", large)):
         b, s = wave.shape
         n = num_frames(s, fcfg.frame_length, fcfg.frame_shift)
         bound_ms, bound_by = _fbank_bound(b, s, n, fcfg)
@@ -206,7 +220,7 @@ def check_fbank(torch, dev):
                replaces="speech_tranformer_pytorch_tpu/kernels/stft_mel.py:80",
                max_abs_err=max(errs.values()), ms=main["ms"], plain_ms=main["plain_ms"],
                bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
-               shape=main["shape"], train=timed["train"])
+               shape=main["shape"], train=timed["train"], train_large=timed["train_large"])
     emit({"check": rec})
     return rec
 
@@ -410,7 +424,9 @@ def check_lineage(torch, dev):
 # D 20 (off the 16-byte grid: the bf16 backward reads a padded copy),
 # the `large` preset's 3000-frame buckets after 4x subsampling (T' 750,
 # many tiles a block) and the `sharded` preset's head (D 128), causal and
-# not. Tolerances: f32 as the JAX goldens (tests/test_flash_attention.py:
+# not; and large_train_path's three shapes (B 96, H 12, D 64: encoder
+# self-attention at its subsampled frame counts, causal decoder
+# self-attention and cross-attention at its target lengths). Tolerances: f32 as the JAX goldens (tests/test_flash_attention.py:
 # 2e-3 forward, 5e-3 gradients); bf16 2e-2 of each tensor's largest value
 # plus 2e-2 relative, because the bf16 kernels round p (forward and
 # backward) and dS to bf16 before their tensor-core products, at other
@@ -419,6 +435,25 @@ def check_lineage(torch, dev):
 FLASH_TOL = {"float32": ((2e-3, 2e-3), (5e-3, 5e-3)),
              "bfloat16": ((2e-2, 2e-2), (2e-2, 2e-2))}
 TRAIN_SHAPES = ("encoder_self", "decoder_self", "cross")
+LARGE_SHAPES = ("large_encoder_self", "large_decoder_self", "large_cross")
+
+
+def _large_attention_lengths(torch):
+    """large_train_path's attention extents: (T', the encoder's subsampled
+    frame counts, the target width, the target lengths)."""
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.data.features import (
+        frame_lengths_from_sample_lengths, num_frames)
+    from speech_tranformer_pytorch_tpu_torch.models.modules import subsampled_lengths
+
+    fcfg = get_config("large").features
+    batch = _large_audio(torch)
+    t = num_frames(batch.audio.shape[1], fcfg.frame_length, fcfg.frame_shift)
+    frames = torch.clamp(frame_lengths_from_sample_lengths(
+        batch.sample_lens, fcfg.frame_length, fcfg.frame_shift), max=t)
+    t_sub = int(subsampled_lengths(torch.tensor(t)))
+    return (t_sub, subsampled_lengths(frames).to(torch.int32),
+            int(batch.targets_in.shape[1]), batch.target_lens.to(torch.int32))
 
 
 def _flash_cases(torch):
@@ -431,6 +466,8 @@ def _flash_cases(torch):
     long = torch.tensor([750, 611, 402, 97], dtype=torch.int32)
     wide = torch.randint(99, 150, (8,), generator=g, dtype=torch.int32)
     wide[0] = 149
+    t_enc, enc_l, t_dec, dec_l = _large_attention_lengths(torch)
+    bl = len(enc_l)
     # name, batch, Tq, Tk, kv_lengths, causal, q/k/v from one fused
     # projection, heads, head_dim
     return [("encoder_self", b, 149, 149, enc, False, True, 8, 64),
@@ -442,7 +479,10 @@ def _flash_cases(torch):
             ("long", 4, 750, 750, long, False, True, 12, 64),
             ("long_causal", 4, 750, 750, long, True, True, 12, 64),
             ("wide_head", 8, 149, 149, wide, False, True, 16, 128),
-            ("wide_head_causal", 8, 149, 149, wide, True, True, 16, 128)]
+            ("wide_head_causal", 8, 149, 149, wide, True, True, 16, 128),
+            ("large_encoder_self", bl, t_enc, t_enc, enc_l, False, True, 12, 64),
+            ("large_decoder_self", bl, t_dec, t_dec, dec_l, True, True, 12, 64),
+            ("large_cross", bl, t_dec, t_enc, enc_l, False, False, 12, 64)]
 
 
 def _flash_inputs(torch, dev, dtype, b, tq, tk, fused, h, d):
@@ -502,7 +542,7 @@ def check_flash(torch, dev):
                 errs[gname] = check_close(f"{tag}.{gname}", got, want,
                                           ga_tol * (scale if dname == "bfloat16" else 1.0),
                                           gr_tol)
-            timed = dtype == torch.bfloat16 and name in TRAIN_SHAPES
+            timed = dtype == torch.bfloat16 and name in TRAIN_SHAPES + LARGE_SHAPES
             if timed:   # no atomics: a second call gives the same bits
                 o2, lse2 = fa.flash_fwd_cuda(q, k, v, lens, causal=causal)
                 if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
@@ -525,10 +565,14 @@ def check_flash(torch, dev):
             stat = b * h * tq * 4                 # one f32 [B, H, Tq] tensor
             qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
             o_lib = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=keep)
+            # The plain versions hold [B, H, Tq, Tk] f32 tensors: fewer
+            # calls at the large shapes.
+            plain_ms = (lambda fn: device_ms(torch, fn, reps=3, rounds=3)
+                        if name in LARGE_SHAPES else device_ms(torch, fn))
             rec = {
                 "flash_fwd": dict(
                     ms=device_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, lens, causal=causal)),
-                    plain_ms=device_ms(torch, lambda: fa.flash_fwd_reference(
+                    plain_ms=plain_ms(lambda: fa.flash_fwd_reference(
                         q, k, v, lens, causal=causal)),
                     library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
                         q, k, v, attn_mask=keep)),
@@ -536,13 +580,13 @@ def check_flash(torch, dev):
                 "flash_bwd_dkv": dict(
                     ms=device_ms(torch, lambda: fa.flash_bwd_dkv_cuda(
                         q, k, v, do, lse_r, di, lens, causal=causal)),
-                    plain_ms=device_ms(torch, lambda: fa.flash_bwd_dkv_reference(
+                    plain_ms=plain_ms(lambda: fa.flash_bwd_dkv_reference(
                         q, k, v, do, lse_r, di, lens, causal=causal)),
                     nbytes=2 * io_q + 4 * io_k + 2 * stat, flops=8 * d * pairs),
                 "flash_bwd_dq": dict(
                     ms=device_ms(torch, lambda: fa.flash_bwd_dq_cuda(
                         q, k, v, do, lse_r, di, lens, causal=causal)),
-                    plain_ms=device_ms(torch, lambda: fa.flash_bwd_dq_reference(
+                    plain_ms=plain_ms(lambda: fa.flash_bwd_dq_reference(
                         q, k, v, do, lse_r, di, lens, causal=causal)),
                     nbytes=3 * io_q + 2 * io_k + 2 * stat, flops=6 * d * pairs),
             }
@@ -561,8 +605,13 @@ def check_flash(torch, dev):
             per_shape[name] = rec
             emit({"check": {"name": f"flash_timing[{name}]", "shape": [b, h, tq, tk, d],
                             "causal": causal, **rec}})
-    # The kernels line reports the encoder self-attention shape; each train
-    # step runs every shape 6 times.
+    # The kernels line reports the base encoder self-attention shape; each
+    # base train step runs every base shape 6 times. A large step runs the
+    # encoder shape 12 times and the decoder shapes 6 times each, and every
+    # forward twice under remat.
+    per_step = lambda kname, shapes, reps: {
+        k: sum(n * per_shape[s][kname][k] for s, n in zip(shapes, reps))
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     recs = []
     for kname, line in (("flash_fwd", 85), ("flash_bwd_dkv", 248), ("flash_bwd_dq", 313)):
         main = per_shape["encoder_self"][kname]
@@ -572,8 +621,9 @@ def check_flash(torch, dev):
                    ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                    bound_by=main["bound_by"], library_ms=main["library_ms"],
                    shape=[64, 8, 149, 149, 64],
-                   per_train_step_ms={k: 6 * sum(per_shape[s][kname][k] for s in per_shape)
-                                      for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+                   per_train_step_ms=per_step(kname, TRAIN_SHAPES, (6, 6, 6)),
+                   per_large_train_step_ms=per_step(
+                       kname, LARGE_SHAPES, (24, 12, 12) if kname == "flash_fwd" else (12, 6, 6)))
         emit({"check": rec})
         recs.append(rec)
     return recs
@@ -584,6 +634,39 @@ def _bf16_ulp(torch, x):
     x = x.float().abs().clamp(min=torch.finfo(torch.bfloat16).tiny)
     _, e = torch.frexp(x)
     return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def _classic_adam_case(torch, fa, tag, params, grads, mu0, nu0, mdt, sc, hyper):
+    """The classic kernel against its plain version from one start: the
+    parameters within 1e-6 relative, moments of dtype ``mdt`` within one
+    bf16 ulp (bf16) or 1e-6 relative (f32), and a second call from the same
+    start bit-equal to the first. Returns (errors, the kernel's p, mu, nu)."""
+    runs = []
+    for fn in (fa.fused_adam_cuda, fa.fused_adam_cuda, fa.adam_update_reference):
+        p = [x.clone() for x in params]
+        mu = [x.to(mdt, copy=True) for x in mu0]
+        nu = [x.to(mdt, copy=True) for x in nu0]
+        fn(p, grads, mu, nu, sc, **hyper)
+        runs.append((p, mu, nu))
+    torch.cuda.synchronize()
+    cat = lambda xs: torch.cat([x.reshape(-1).float() for x in xs])
+    rec = {}
+    for i, what in enumerate(("p", "mu", "nu")):
+        a, again, b = (cat(r[i]) for r in runs)
+        diff = (a - b).abs()
+        if mdt == torch.bfloat16 and what != "p":
+            bad = diff > _bf16_ulp(torch, b)      # within one bf16 ulp
+        else:
+            bad = diff > 1e-6 * b.abs()           # within 1e-6 relative
+        if bool(bad.any()):
+            raise AssertionError(f"{tag}.{what}: {int(bad.sum())} elements off; "
+                                 f"max abs err {float(diff.max())}")
+        if not torch.equal(a, again):
+            raise AssertionError(f"{tag}.{what}: differs on a second call")
+        rec[what] = {"max_abs_err": float(diff.max()), "bit_exact": bool(torch.equal(a, b)),
+                     "second_call_bit_equal": True}
+    emit({"check": {"name": tag, **rec}})
+    return (rec, *runs[0])
 
 
 def check_adam(torch, dev):
@@ -616,29 +699,9 @@ def check_adam(torch, dev):
                 torch._foreach_norm(gs))), count)
             if bool(sc[0] < 1.0) != clip_active:
                 raise AssertionError(f"clip scale {float(sc[0])} for clip_active={clip_active}")
-            p_k, p_r = [x.clone() for x in params], [x.clone() for x in params]
-            mu_k, nu_k = [x.to(mdt) for x in mu0], [x.to(mdt) for x in nu0]
-            mu_r, nu_r = [x.clone() for x in mu_k], [x.clone() for x in nu_k]
-            fa.fused_adam_cuda(p_k, gs, mu_k, nu_k, sc, **hyper)
-            fa.adam_update_reference(p_r, gs, mu_r, nu_r, sc, **hyper)
-            torch.cuda.synchronize()
             tag = f"fused_adam[{str(mdt)[6:]},clip={'on' if clip_active else 'off'}]"
-            cat = lambda xs: torch.cat([x.reshape(-1).float() for x in xs])
-            rec = {}
-            for what, got, want in (("p", p_k, p_r), ("mu", mu_k, mu_r), ("nu", nu_k, nu_r)):
-                a, b = cat(got), cat(want)
-                diff = (a - b).abs()
-                if mdt == torch.bfloat16 and what != "p":
-                    bad = diff > _bf16_ulp(torch, b)      # within one bf16 ulp
-                else:
-                    bad = diff > 1e-6 * b.abs()           # within 1e-6 relative
-                if bool(bad.any()):
-                    raise AssertionError(f"{tag}.{what}: {int(bad.sum())} elements off; "
-                                         f"max abs err {float(diff.max())}")
-                rec[what] = {"max_abs_err": float(diff.max()),
-                             "bit_exact": bool(torch.equal(a, b))}
-            errs[tag] = rec
-            emit({"check": {"name": tag, **rec}})
+            errs[tag], p_k, mu_k, nu_k = _classic_adam_case(
+                torch, fa, tag, params, gs, mu0, nu0, mdt, sc, hyper)
             if mdt == torch.bfloat16 and clip_active:
                 timed = (p_k, gs, mu_k, nu_k, sc)
     p_k, gs, mu_k, nu_k, sc = timed
@@ -653,16 +716,125 @@ def check_adam(torch, dev):
     library_ms = device_ms(torch, lib.step)
     nbytes = 20 * n                   # g, p, mu, nu read; p, mu, nu written (bf16 moments)
     bound_ms, bound_by = bound(nbytes, 16 * n)
+    master_rec, large = check_adam_master(torch, dev)
     rec = dict(name="fused_adam", source=f"{PKG}/csrc/fused_adam.cu",
                replaces="speech_tranformer_pytorch_tpu/ops/fused_adam.py:46",
-               max_abs_err=max(r[w]["max_abs_err"] for r in errs.values() for w in r),
+               max_abs_err=max([large["max_abs_err"]] + [
+                   r[w]["max_abs_err"] for r in errs.values() for w in r]),
                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms,
                library_note="torch.optim.Adam(fused=True) on the same f32 tree; "
                             "it keeps f32 moments (28 B a parameter, not 20)",
+               params=n, leaves=len(shapes), large=large)
+    emit({"check": rec})
+    return [rec, master_rec]
+
+
+# The master-weights variant of B-9 at the `large` tree's leaf mix: bf16
+# gradients and parameters, f32 masters, bf16 and f32 moments, weight decay
+# 0 and 0.01, the clip active. Master, moments and parameters must equal the
+# plain version bit for bit, and a second call from the same start must
+# equal the first. The classic kernel, which the `large` preset's classic
+# step launches, runs beside it on the same tree (f32 parameters and
+# gradients) under check_adam's tolerances. Both are timed at bf16
+# moments, no weight decay (the preset's). Returns (the master variant's
+# record, the classic kernel's at the `large` tree).
+def check_adam_master(torch, dev):
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.kernels import fused_adam as fa
+    from speech_tranformer_pytorch_tpu_torch.models import SpeechTransformer
+    from speech_tranformer_pytorch_tpu_torch.train import make_fused_opt
+
+    cfg = get_config("large", **{"train.fused_optimizer": True,
+                                 "train.master_weights": True})
+    with torch.device("meta"):
+        shapes = [p.shape for p in SpeechTransformer(cfg.model).parameters()]
+    n = sum(math.prod(s) for s in shapes)
+    opt = make_fused_opt(cfg)
+    g = torch.Generator(device=dev).manual_seed(6)
+    rnd = lambda s, std: torch.randn(s, device=dev, generator=g) * std
+    masters = [rnd(s, 0.05) for s in shapes]
+    grads = [rnd(s, 1e-2).to(torch.bfloat16) for s in shapes]   # norm ~120: clip on
+    mu0 = [rnd(s, 1e-3) for s in shapes]
+    nu0 = [rnd(s, 1e-2).square() for s in shapes]
+    sc = opt.scalars(torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm([x.float() for x in grads]))), torch.tensor(
+            5, dtype=torch.int32, device=dev))
+    if not bool(sc[0] < 1.0):
+        raise AssertionError(f"clip scale {float(sc[0])}: the clip should be active")
+    cat = lambda xs: torch.cat([x.reshape(-1).float() for x in xs])
+    grads32 = [x.float() for x in grads]
+    timed, max_err, classic_err, classic = None, 0.0, 0.0, None
+    for mdt in (torch.bfloat16, torch.float32):
+        for wd in (0.0, 0.01):
+            hyper = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps, weight_decay=wd)
+            crec, *c_out = _classic_adam_case(
+                torch, fa, f"fused_adam_large[{str(mdt)[6:]},wd={wd}]", masters, grads32,
+                mu0, nu0, mdt, sc, hyper)
+            classic_err = max([classic_err] + [r["max_abs_err"] for r in crec.values()])
+            if mdt == torch.bfloat16 and wd == 0.0:
+                classic = c_out
+            del c_out
+            runs = []
+            for fn in (fa.fused_adam_master_cuda, fa.fused_adam_master_cuda,
+                       fa.adam_update_master_reference):
+                w = [x.clone() for x in masters]
+                p = [x.to(torch.bfloat16) for x in masters]
+                mu = [x.to(mdt, copy=True) for x in mu0]
+                nu = [x.to(mdt, copy=True) for x in nu0]
+                fn(p, grads, w, mu, nu, sc, **hyper)
+                runs.append((p, w, mu, nu))
+            torch.cuda.synchronize()
+            tag = f"fused_adam_master[{str(mdt)[6:]},wd={wd}]"
+            rec = {}
+            for i, what in enumerate(("p", "master", "mu", "nu")):
+                got, again, want = (cat(r[i]) for r in runs)
+                rec[what] = {"max_abs_err": float((got - want).abs().max()),
+                             "bit_exact": bool(torch.equal(got, want)),
+                             "second_call_bit_equal": bool(torch.equal(got, again))}
+            emit({"check": {"name": tag, **rec}})
+            max_err = max([max_err] + [r["max_abs_err"] for r in rec.values()])
+            bad = [w for w, r in rec.items()
+                   if not (r["bit_exact"] and r["second_call_bit_equal"])]
+            if bad:
+                raise AssertionError(f"{tag}: {bad} differ from the plain version or "
+                                     f"between calls: {rec}")
+            if mdt == torch.bfloat16 and wd == 0.0:
+                timed = runs[0], hyper
+    (p, w, mu, nu), hyper = timed
+    ms = device_ms(torch, lambda: fa.fused_adam_master_cuda(p, grads, w, mu, nu, sc, **hyper))
+    plain_ms = device_ms(torch, lambda: fa.adam_update_master_reference(
+        p, grads, w, mu, nu, sc, **hyper), reps=3, rounds=3)
+    cp, cmu, cnu = classic
+    lib_params = [torch.nn.Parameter(x.clone()) for x in masters]
+    for p_, g_ in zip(lib_params, grads32):
+        p_.grad = g_
+    lib = torch.optim.Adam(lib_params, lr=1e-4, betas=(opt.b1, opt.b2), eps=opt.eps,
+                           fused=True)
+    large = dict(ms=device_ms(torch, lambda: fa.fused_adam_cuda(
+                     cp, grads32, cmu, cnu, sc, **hyper)),
+                 plain_ms=device_ms(torch, lambda: fa.adam_update_reference(
+                     cp, grads32, cmu, cnu, sc, **hyper), reps=3, rounds=3),
+                 library_ms=device_ms(torch, lib.step),
+                 max_abs_err=classic_err, params=n, leaves=len(shapes))
+    large["bound_ms"], large["bound_by"] = bound(20 * n, 16 * n)
+    emit({"check": {"name": "fused_adam_timing[large]", **large}})
+    del lib, lib_params, classic, cp, cmu, cnu
+    # g 2, master 4 + 4, mu 2 + 2, nu 2 + 2, p 2 bytes a parameter; 16 f32
+    # operations (the classic row's count; the two casts are free).
+    bound_ms, bound_by = bound(20 * n, 16 * n)
+    rec = dict(name="fused_adam_master", source=f"{PKG}/csrc/fused_adam.cu",
+               replaces="speech_tranformer_pytorch_tpu/ops/fused_adam.py:46",
+               replaces_note="the master variant of B-9: JAX's updm "
+                             "(ops/fused_adam.py:199-210), which the TPU runs "
+                             "through XLA beside the Pallas kernel",
+               max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None,
+               library_note="no PyTorch call updates an f32 master from bf16 "
+                            "gradients and writes bf16 parameters",
                params=n, leaves=len(shapes))
     emit({"check": rec})
-    return rec
+    return rec, large
 
 
 def _int8_operands(torch, dev, g, m, k, n, dtype):
@@ -842,9 +1014,20 @@ def check_int8_ffn(torch, dev):
     return rec
 
 
-TRAIN_STEP_LAUNCHES = {"stft_mel": 1, "beam_prune": 0, "lineage_attention": 0,
-                       "flash_fwd": 18, "flash_bwd_dkv": 18, "flash_bwd_dq": 18,
-                       "fused_adam": 1, "int8_matmul": 0, "int8_ffn": 0}
+def step_launches(cfg, master: bool):
+    """Exact kernel launches of one train step: one fbank; per attention
+    layer (encoder self, decoder self and cross) a flash forward, run again
+    in the backward's recompute under remat, one dK/dV and one dQ; one Adam
+    launch, of the master variant with master weights."""
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+
+    m = cfg.model
+    layers = m.num_encoder_layers + 2 * m.num_decoder_layers
+    want = {k: 0 for k in interface.launch_counts()}
+    want.update(stft_mel=1, flash_fwd=layers * (2 if m.remat else 1),
+                flash_bwd_dkv=layers, flash_bwd_dq=layers)
+    want["fused_adam_master" if master else "fused_adam"] = 1
+    return want
 
 
 def train_path(torch, dev):
@@ -854,28 +1037,15 @@ def train_path(torch, dev):
 
     smoke = smoke_train_batch(dev)
     state, batch, step, cfg = smoke.state, smoke.batch, smoke.step, smoke.cfg
-    layers = cfg.model.num_encoder_layers + 2 * cfg.model.num_decoder_layers
-    if TRAIN_STEP_LAUNCHES["flash_fwd"] != layers:
-        raise AssertionError(f"{layers} attention layers, not 18")
+    want = step_launches(cfg, master=False)
+    if want["flash_fwd"] != 18:
+        raise AssertionError(f"{want['flash_fwd']} attention layers, not 18")
     before = {k: p.detach().clone() for k, p in state.params.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    walls, losses, norms = [], [], []
     interface.reset_launch_counts()
-    prev = interface.launch_counts()
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        now = interface.launch_counts()
-        per_step = {k: now[k] - prev[k] for k in now}
-        if per_step != TRAIN_STEP_LAUNCHES:
-            raise AssertionError(f"step {i}: launches {per_step}, expected "
-                                 f"{TRAIN_STEP_LAUNCHES}")
-        prev = now
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
+    state, walls, losses, m, norms = _checked_steps(
+        torch, step, state, batch, WARMUP_STEPS + TIMED_STEPS, want, "train")
     counts = interface.launch_counts()
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"non-finite loss {losses} or grad_norm {norms}")
@@ -897,8 +1067,289 @@ def train_path(torch, dev):
         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
         "loss": losses, "grad_norm": norms,
         "min_changed_fraction": min(changed.values()),
-        "launches_per_step": TRAIN_STEP_LAUNCHES, "launches": counts}})
+        "launches_per_step": want, "launches": counts}})
     return counts
+
+
+# The `large` preset's train path: full width and depth (d_model 768, 12
+# heads, d_ff 3072, 12+6 layers), bf16 over f32 masters, bf16 moments,
+# dropout 0.1, SpecAugment and layer remat as the preset sets them, on
+# train.batch_size (96) int16 utterances of 20-30 s (the preset's top
+# bucket: up to 2,998 frames, T' 749) with 20-60 target tokens.
+LARGE_SECONDS, LARGE_TOKENS = (20.0, 30.0), (20, 60)
+LARGE_SHAPE = (768, 12, 3072, 12, 6, 96)   # d_model, heads, d_ff, layers, batch
+MASTER_WEIGHTS = {"train.fused_optimizer": True, "train.master_weights": True}
+
+
+@functools.lru_cache(maxsize=1)
+def _large_audio(torch):
+    """``large_train_path``'s batch, on the CPU (made once a run)."""
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.profile_train import smoke_audio_batch
+
+    cfg = get_config("large")
+    return smoke_audio_batch(cfg, cfg.train.batch_size, device=torch.device("cpu"),
+                             seconds=LARGE_SECONDS, tokens=LARGE_TOKENS)
+
+
+def _checked_steps(torch, step, state, batch, n, want, tag):
+    """``n`` steps, each with exactly ``want`` launches; returns (state,
+    walls, losses, metrics of the last step, grad norms)."""
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+
+    walls, losses, norms = [], [], []
+    prev = interface.launch_counts()
+    for i in range(n):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        now = interface.launch_counts()
+        per_step = {k: now[k] - prev[k] for k in now}
+        if per_step != want:
+            raise AssertionError(f"{tag} step {i}: launches {per_step}, expected {want}")
+        prev = now
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return state, walls, losses, m, norms
+
+
+def _profiled_step(torch, step, state, batch):
+    """One step under torch.profiler: (state, device events, busy s, wall s)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech_tranformer_pytorch_tpu_torch.profile_decode import _busy_us
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e6
+    return state, len(kernels), busy, wall
+
+
+def large_train_path(torch, dev):
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.data.augment import (
+        apply_masks, draw_spec_augment, spec_augment_masks)
+    from speech_tranformer_pytorch_tpu_torch.data.pipeline import (
+        make_audio_train_step, make_preprocess_fn)
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.ops.dropout import (
+        AUGMENT_STREAM, step_generator)
+    from speech_tranformer_pytorch_tpu_torch.ops.masks import length_mask
+    from speech_tranformer_pytorch_tpu_torch.profile_train import (
+        TIMED_STEPS, WARMUP_STEPS, smoke_train_batch)
+    from speech_tranformer_pytorch_tpu_torch.train import create_train_state, loss_and_grads
+
+    smoke = smoke_train_batch(dev, "large", seconds=LARGE_SECONDS, tokens=LARGE_TOKENS)
+    cfg, state, batch, step = smoke.cfg, smoke.state, smoke.batch, smoke.step
+    del smoke
+    m, sa = cfg.model, cfg.spec_augment
+    shape = (m.d_model, m.num_heads, m.d_ff, m.num_encoder_layers, m.num_decoder_layers,
+             cfg.train.batch_size)
+    if shape != LARGE_SHAPE or not (m.remat and sa.enabled) or m.dropout_rate != 0.1:
+        raise AssertionError(f"the large preset changed: {cfg.to_dict()}")
+    n_params = sum(p.numel() for p in state.params.values())
+    init = {k: p.detach().clone() for k, p in state.params.items()}
+    seed = cfg.train.seed
+    report = {"preset": "large", "params": n_params, "utterances": int(batch.audio.shape[0]),
+              "samples": int(batch.audio.shape[1]),
+              "target_width": int(batch.targets_in.shape[1])}
+
+    # (b) Step 0's features: the train step's own preprocess with its own
+    # augmentation generator, against the masks rebuilt from that
+    # generator's draws; then the budgets on every utterance.
+    pre = make_preprocess_fn(cfg.features, sa)
+    plain = pre(batch, dev)
+    aug = pre(batch, dev, step_generator(seed, 0, dev, AUGMENT_STREAM))
+    b, t, f = plain.feats.shape
+    fkeep, tkeep = spec_augment_masks(
+        draw_spec_augment(step_generator(seed, 0, dev, AUGMENT_STREAM), b, t, f, sa),
+        plain.frame_lens, t, f, sa)
+    n = plain.frame_lens
+    masked = ((~tkeep) & length_mask(n, t)).sum(1)
+    frame_share, bin_share = masked / n, (~fkeep).sum(1) / f
+    spec = {"frames": t, "frame_lens": [int(n.min()), int(n.max())],
+            "masked_frame_share_max": float(frame_share.max()),
+            "masked_frame_share_mean": float(frame_share.mean()),
+            "masked_bin_share_max": float(bin_share.max()),
+            "masked_frames_min": int(masked.min()), "max_total_frac": sa.max_total_frac,
+            "equals_masks_of_draws": bool(torch.equal(aug.feats, apply_masks(
+                plain.feats, fkeep, tkeep))),
+            "changed": bool((aug.feats != plain.feats).any())}
+    report["spec_augment_step0"] = spec
+    if not (spec["equals_masks_of_draws"] and spec["changed"]
+            and spec["masked_frame_share_max"] <= sa.max_total_frac
+            and spec["masked_bin_share_max"] <= sa.max_total_frac
+            and spec["masked_frames_min"] >= 1):
+        raise AssertionError(f"SpecAugment at step 0: {spec}")
+
+    # The main path: 3 warm-up and 10 timed steps, exact launches a step.
+    want = step_launches(cfg, master=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    interface.reset_launch_counts()
+    state, walls, losses, met, _ = _checked_steps(torch, step, state, batch,
+                                                  WARMUP_STEPS + TIMED_STEPS, want, "large")
+    counts = interface.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    unchanged = [k for k, p in state.params.items() if torch.equal(p.detach(), init[k])]
+    if unchanged or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses {losses}; parameters that did not change: {unchanged}")
+    timed = walls[WARMUP_STEPS:]
+    wall = statistics.median(timed)
+    audio_s = float(met["audio_seconds"])
+    report.update({
+        "steps": len(walls), "step_wall_s_median": wall, "step_wall_s": timed,
+        "step_wall_s_spread": [min(timed), max(timed)], "audio_s_per_step": audio_s,
+        "audio_s_per_s": audio_s / wall, "target_tokens_per_s": float(met["tokens"]) / wall,
+        "peak_mem_bytes": peak, "loss": losses, "launches_per_step": want})
+    del state
+
+    # (a) Remat is exact: one step's loss and gradients with remat on and
+    # off, from the same weights, batch (step 0's augmented features) and
+    # dropout seed. Called twice each; the second call is timed.
+    runs = {}
+    for remat in (True, False):
+        c = cfg.replace(model=m.replace(remat=remat))
+        st = create_train_state(c, device=dev, params=init)
+        for _ in range(2):
+            runs.pop(remat, None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            grads, mm = loss_and_grads(c, st, aug, seed)
+            torch.cuda.synchronize()
+            runs[remat] = (grads, mm["loss"], time.perf_counter() - t0,
+                           torch.cuda.max_memory_allocated(dev) - base)
+        del st
+    (g_on, loss_on, t_on, mem_on), (g_off, loss_off, t_off, mem_off) = runs[True], runs[False]
+    err = {k: float((g_on[k].float() - g_off[k].float()).abs().max())
+           / max(float(g_off[k].abs().max()), 1e-30) for k in g_off}
+    remat_rep = {"loss_bit_equal": bool(torch.equal(loss_on, loss_off)),
+                 "loss": float(loss_on), "grad_err_over_leaf_max": max(err.values()),
+                 "leaves_not_bit_equal": [k for k in g_off if not torch.equal(g_on[k], g_off[k])],
+                 "leaves": len(g_off), "loss_and_grads_s": {"remat": t_on, "no_remat": t_off},
+                 "peak_mem_above_state_bytes": {"remat": mem_on, "no_remat": mem_off}}
+    report["remat_exact"] = remat_rep
+    del runs, g_on, g_off
+    if not remat_rep["loss_bit_equal"] or remat_rep["grad_err_over_leaf_max"] > 1e-5:
+        raise AssertionError(f"remat changes the step: {remat_rep}")
+
+    # (c) Master weights are exact: 3 steps from the same start with the
+    # classic scheme and with master weights (fused optimizer); the f32
+    # master must equal the classic f32 parameters bit for bit. Then one
+    # profiled step of each: device events and busy time a step.
+    cm = get_config("large", **MASTER_WEIGHTS)
+    out, master_counts = {}, {}
+    for name, c in (("classic", cfg), ("master", cm)):
+        st = create_train_state(c, device=dev, params=init)
+        stp = make_audio_train_step(c)
+        w = step_launches(c, master=name == "master")
+        interface.reset_launch_counts()
+        st, walls_c, losses_c, _, _ = _checked_steps(torch, stp, st, batch, 3, w, name)
+        if name == "master":
+            master_counts = interface.launch_counts()
+        f32 = st.opt.master if name == "master" else st.params
+        f32 = {k: v.detach().clone() for k, v in f32.items()}
+        bf16 = {k: v.detach().to(torch.bfloat16, copy=True) for k, v in st.params.items()}
+        st, events, busy, wall_p = _profiled_step(torch, stp, st, batch)
+        out[name] = dict(f32=f32, bf16=bf16, losses=losses_c, walls=walls_c, events=events,
+                         busy_s=busy, wall_s=wall_p, param_dtype=str(next(
+                             iter(st.params.values())).dtype))
+        del st
+    cl, ms_ = out["classic"], out["master"]
+    master_rep = {
+        "master_bit_equal_classic_f32": all(torch.equal(ms_["f32"][k], cl["f32"][k])
+                                            for k in cl["f32"]),
+        "params_bit_equal_classic_cast": all(torch.equal(ms_["bf16"][k], cl["bf16"][k])
+                                             for k in cl["bf16"]),
+        "losses": {"classic": cl["losses"], "master": ms_["losses"]},
+        "param_dtype": {"classic": cl["param_dtype"], "master": ms_["param_dtype"]},
+        "step_wall_s": {"classic": cl["walls"], "master": ms_["walls"]},
+        "device_events_per_step": {"classic": cl["events"], "master": ms_["events"]},
+        "device_busy_s": {"classic": cl["busy_s"], "master": ms_["busy_s"]},
+        "device_idle_share": {k: 1.0 - out[k]["busy_s"] / out[k]["wall_s"] for k in out},
+        "launches_per_step": step_launches(cm, master=True)}
+    report["master_weights"] = master_rep
+    report["device_busy_s"] = cl["busy_s"]
+    report["device_idle_share"] = master_rep["device_idle_share"]["classic"]
+    if not (master_rep["master_bit_equal_classic_f32"]
+            and master_rep["params_bit_equal_classic_cast"]
+            and cl["losses"] == ms_["losses"]):
+        emit({"large_train_path": report})
+        raise AssertionError(f"master weights differ from the classic scheme: {master_rep}")
+    del out, cl, ms_
+    paths = {"large": counts, "large_master": master_counts}
+    report["trainer"], trainer_counts = _presets_trainer(torch, dev)
+    paths.update(trainer_counts)
+    report["launches_by_path"] = paths
+    report["card"] = smi_line()
+    emit({"large_train_path": report})
+    return paths
+
+
+def _presets_trainer(torch, dev):
+    """(d) The ``large`` preset with master weights and the ``librispeech``
+    preset, at full width and depth, through the ``Trainer`` on a WAV
+    manifest (batch 8 of 4-6 s): 2 steps each with exact launches, then
+    ``load_recognizer`` serves the last checkpoint (the master-weights one
+    for ``large``) and decodes 2 utterances greedily. Returns (the report,
+    the launches of each run: ``large_trainer`` and ``librispeech``)."""
+    import tempfile
+
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.recognize import load_recognizer
+    from speech_tranformer_pytorch_tpu_torch.runner import Trainer
+
+    report, counts = {}, {}
+    small = {"train.batch_size": 8, "train.num_epochs": 100, "train.log_every": 1,
+             "train.checkpoint_every_steps": 100}
+    with tempfile.TemporaryDirectory() as tmp:
+        presets = (("large", MASTER_WEIGHTS), ("librispeech", {}))
+        paths = _write_corpus(tmp, min(get_config(p).model.vocab_size for p, _ in presets))
+        for preset, over in presets:
+            cfg = get_config(preset, **small, **over)
+            work = f"{tmp}/{preset}"
+            tr = Trainer(cfg, work_dir=work, train_manifest=paths["train"], device=dev)
+            interface.reset_launch_counts()
+            t0 = time.perf_counter()
+            state = tr.train(max_steps=2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = interface.launch_counts()
+            one = step_launches(cfg, master=cfg.train.master_weights)
+            want = {k: 2 * v for k, v in one.items()}
+            counts["large_trainer" if preset == "large" else preset] = got
+            rec = load_recognizer(cfg, f"{work}/checkpoints", device=dev)
+            served = dict(rec.model.named_parameters())
+            same = all(torch.equal(served[k], p.detach().to(served[k].dtype))
+                       for k, p in state.params.items())
+            batch = tr.batcher._make_batch([0, 1], 3)      # the 800-frame bucket
+            hyps = rec.decode_batch(batch.audio, batch.sample_lens, beam_size=1,
+                                    max_len=4, alpha=1.0)
+            report[preset] = {"overrides": dict(small, **over), "steps": state.step,
+                              "wall_s": wall, "launches": got, "launches_expected": want,
+                              "param_dtype": str(next(iter(state.params.values())).dtype),
+                              "served_params_equal": same, "greedy_hyps": hyps}
+            if got != want or not same or state.step != 2 or len(hyps) != 2:
+                raise AssertionError(f"{preset} through the Trainer: {report[preset]}")
+            del tr, state, rec, served
+    return report, counts
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return smi.strip().splitlines()[0]
 
 
 def train_card_vs_cpu(torch, dev):
@@ -1033,9 +1484,11 @@ def overfit_anchor(torch, dev):
 def expected_serve_launches(cfg, steps: int, int8: bool, beam: int):
     """Exact kernel launches of one served batch of ``steps`` decode steps
     (beam search, or greedy decoding at ``beam == 1``)."""
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+
     m = cfg.model
     layer_step = (1 if m.fused_qkv else 3) + 3    # self q/k/v, self out, cross q, cross out
-    want = {k: 0 for k in TRAIN_STEP_LAUNCHES}
+    want = {k: 0 for k in interface.launch_counts()}
     want.update({"stft_mel": 1, "beam_prune": steps if beam > 1 else 0,
                  "lineage_attention": m.num_decoder_layers * steps,
                  "flash_fwd": m.num_encoder_layers})
@@ -1264,15 +1717,16 @@ def _trainer_run(torch, dev, cfg, work, paths, max_steps, total, resume=False,
     if dev_manifest:
         _count_dev_eval(tr, total)
     inner, clock = tr.step_fn, {}
+    want = step_launches(cfg, master=cfg.train.master_weights)
 
     def step(state, abatch, seed):
         clock.setdefault("t0", time.perf_counter())
         before = interface.launch_counts()
         state, m = inner(state, abatch, seed)
         delta = _launch_delta(before, interface.launch_counts())
-        if delta != TRAIN_STEP_LAUNCHES:
+        if delta != want:
             raise AssertionError(f"Trainer step {state.step}: launches {delta}, "
-                                 f"expected {TRAIN_STEP_LAUNCHES}")
+                                 f"expected {want}")
         _add(total, delta)
         if state.step == max_steps:
             torch.cuda.synchronize()
@@ -1367,7 +1821,7 @@ def manifest_path(torch, dev):
     cfg = get_config("base", **{"train.batch_size": 8, "train.num_epochs": 100,
                                 "train.log_every": 3, "train.eval_every_steps": 3,
                                 "train.checkpoint_every_steps": MANIFEST_CKPT_EVERY})
-    total, report = {k: 0 for k in TRAIN_STEP_LAUNCHES}, {}
+    total, report = {k: 0 for k in interface.launch_counts()}, {}
     with tempfile.TemporaryDirectory() as tmp:
         paths = _write_corpus(tmp, cfg.model.vocab_size)
         straight, _ = _trainer_run(torch, dev, cfg, f"{tmp}/a", paths, MANIFEST_STEPS,
@@ -1414,7 +1868,7 @@ def manifest_path(torch, dev):
             "resume_worst_leaf": [worst[0], *worst[1]],
             "rerun_bit_identical": all(d == 0.0 for d, _ in rerun_diff.values()),
             "rerun_param_max_abs_diff": max(d for d, _ in rerun_diff.values()),
-            "launches_per_step": TRAIN_STEP_LAUNCHES}
+            "launches_per_step": step_launches(cfg, master=False)}
         del again, resumed
         if not exact and worst[1][1] > 1e-5:
             raise AssertionError(f"resumed params differ from the straight run's: "
@@ -1518,10 +1972,10 @@ def drive_recipe(torch, dev):
     ``"cer": 0.0``."""
     import tempfile
 
-    layers = RECIPE_SETS["model.num_encoder_layers"] + 2 * RECIPE_SETS["model.num_decoder_layers"]
-    per_step = dict(TRAIN_STEP_LAUNCHES, flash_fwd=layers, flash_bwd_dkv=layers,
-                    flash_bwd_dq=layers)
-    total, report = {k: 0 for k in TRAIN_STEP_LAUNCHES}, {}
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+
+    per_step = step_launches(get_config("tiny", **RECIPE_SETS), master=False)
+    total, report = {k: 0 for k in per_step}, {}
     with tempfile.TemporaryDirectory() as tmp:
         data = f"{tmp}/data"
         t0 = time.perf_counter()
@@ -1581,8 +2035,8 @@ def drive_recipe(torch, dev):
 CHECKS = ("check_fbank", "check_beam_prune", "check_lineage", "check_flash",
           "check_adam", "check_int8_matmul", "check_int8_ffn")
 PHASES = CHECKS + ("main_path", "card_vs_cpu", "int8_path", "int8_card_vs_cpu",
-                   "train_path", "train_card_vs_cpu", "overfit_anchor",
-                   "manifest_path", "drive_recipe")
+                   "train_path", "large_train_path", "train_card_vs_cpu",
+                   "overfit_anchor", "manifest_path", "drive_recipe")
 
 
 def main() -> int:
@@ -1605,10 +2059,7 @@ def main() -> int:
     from speech_tranformer_pytorch_tpu_torch.kernels import _build
 
     dev = resolve_device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    card = smi.strip().splitlines()[0]
+    card = smi_line()
     print(card, flush=True)
     emit({"torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
@@ -1624,7 +2075,8 @@ def main() -> int:
             out = globals()[name](torch, dev)
             recs += out if isinstance(out, list) else [out]
             emit({"phase_s": {name: time.perf_counter() - t0}})
-    counts = {"serve": {}, "serve_int8": {}, "train": {}, "manifest": {}, "recipe": {}}
+    counts = {"serve": {}, "serve_int8": {}, "train": {}, "large": {}, "large_master": {},
+              "large_trainer": {}, "librispeech": {}, "manifest": {}, "recipe": {}}
     for path, int8 in (("serve", False), ("serve_int8", True)):
         name = "int8_path" if int8 else "main_path"
         if name in phases:
@@ -1635,6 +2087,10 @@ def main() -> int:
             emit({"phase_s": {name: time.perf_counter() - t0}})
     if "train_path" in phases:
         counts["train"] = train_path(torch, dev)
+    if "large_train_path" in phases:
+        t0 = time.perf_counter()
+        counts.update(large_train_path(torch, dev))
+        emit({"phase_s": {"large_train_path": time.perf_counter() - t0}})
     for name in ("train_card_vs_cpu", "overfit_anchor"):
         if name in phases:
             t0 = time.perf_counter()

@@ -6,7 +6,10 @@ dataclasses, fields, defaults, five presets, ``get_config``,
 equals the JAX package's (tests/test_torch_config.py holds them equal).
 Fields that select JAX-only machinery (Pallas switches, ``scan_layers``,
 mesh axes, ...) are kept so configs and checkpoints stay interchangeable;
-the port reads only the ones its modules implement.
+the port reads only the ones its modules implement. ``scan_layers`` (JAX's
+weight-stacked ``nn.scan`` over the encoder layers, a compile-time lever)
+is read only by ``convert.py``, which unstacks such a tree; the port always
+builds its layers one by one.
 """
 
 from __future__ import annotations
@@ -96,9 +99,9 @@ class ModelConfig(_Replace):
     dtype: str = "bfloat16"        # activation dtype (params stay f32 in training)
     use_flash_attention: bool = False
     attention_impl: str = "auto"
-    remat: bool = False
+    remat: bool = False            # torch.utils.checkpoint per layer (training)
     attention_remat: bool = False
-    scan_layers: bool = False
+    scan_layers: bool = False      # JAX-only; the port reads it in convert.py
     attention_bf16_weights: bool = True
 
     @property

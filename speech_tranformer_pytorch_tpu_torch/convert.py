@@ -10,6 +10,13 @@ variables)``), with or without the top-level ``"params"`` key. Layout rules:
   LayerNorm scale/bias              -> LayerNorm weight/bias
   decoder embed/embedding [V,d]     -> Embedding weight (tied output proj.)
 Both directions only reshape and transpose, so a round trip is exact.
+
+With ``model.scan_layers`` the JAX encoder keeps its layers stacked in one
+``nn.scan`` module, ``encoder/layers/layer/<module>/<leaf>``, every leaf
+with a leading axis of length ``num_encoder_layers``; layer i of that
+stack is the port's ``encoder.layers.{i}``. The JAX decoder is never
+scanned and keeps ``decoder/layer_{i}``. ``scan_layers`` selects JAX-only
+machinery: the converter is the one place the port reads it.
 """
 
 from __future__ import annotations
@@ -25,23 +32,29 @@ StateDict = Dict[str, torch.Tensor]
 
 
 def _entries(cfg: ModelConfig):
-    """(torch name, jax path, kind, jax shape) for every parameter. ``kind``
-    is ``("dense", n)`` for a kernel whose first n axes are contracted,
-    ``("bias",)``, ``("conv",)`` or ``("copy",)``."""
+    """(torch name, jax path, kind, jax shape, layer) for every parameter.
+    ``kind`` is ``("dense", n)`` for a kernel whose first n axes are
+    contracted, ``("bias",)``, ``("conv",)`` or ``("copy",)``; ``layer`` is
+    the index into the leaf's leading axis for a scanned encoder layer, else
+    None (``shape`` is then one layer's)."""
     d, h, dh = cfg.d_model, cfg.num_heads, cfg.head_dim
     c = cfg.subsample_channels
     freq = (((cfg.input_dim - 3) // 2 + 1) - 3) // 2 + 1
     out = []
+    layer = None
+
+    def add(name, path, kind, shape):
+        out.append((name, path, kind, shape, layer))
 
     def dense(name, path, in_shape, out_shape, bias=True):
-        out.append((f"{name}.weight", path + ("kernel",), ("dense", len(in_shape)),
-                    tuple(in_shape) + tuple(out_shape)))
+        add(f"{name}.weight", path + ("kernel",), ("dense", len(in_shape)),
+            tuple(in_shape) + tuple(out_shape))
         if bias:
-            out.append((f"{name}.bias", path + ("bias",), ("bias",), tuple(out_shape)))
+            add(f"{name}.bias", path + ("bias",), ("bias",), tuple(out_shape))
 
     def norm(name, path):
-        out.append((f"{name}.weight", path + ("LayerNorm_0", "scale"), ("copy",), (d,)))
-        out.append((f"{name}.bias", path + ("LayerNorm_0", "bias"), ("copy",), (d,)))
+        add(f"{name}.weight", path + ("LayerNorm_0", "scale"), ("copy",), (d,))
+        add(f"{name}.bias", path + ("LayerNorm_0", "bias"), ("copy",), (d,))
 
     def attn(name, path, fused):
         if fused:
@@ -57,21 +70,25 @@ def _entries(cfg: ModelConfig):
 
     sub = ("encoder", "subsample")
     for i, cin in enumerate((1, c)):
-        out.append((f"encoder.subsample.conv{i}.weight", sub + (f"Conv_{i}", "kernel"),
-                    ("conv",), (3, 3, cin, c)))
-        out.append((f"encoder.subsample.conv{i}.bias", sub + (f"Conv_{i}", "bias"),
-                    ("copy",), (c,)))
+        add(f"encoder.subsample.conv{i}.weight", sub + (f"Conv_{i}", "kernel"),
+            ("conv",), (3, 3, cin, c))
+        add(f"encoder.subsample.conv{i}.bias", sub + (f"Conv_{i}", "bias"), ("copy",), (c,))
     dense("encoder.subsample.out", sub + ("Dense_0",), (freq * c,), (d,))
     for i in range(cfg.num_encoder_layers):
-        n, p = f"encoder.layers.{i}", ("encoder", f"layer_{i}")
+        n = f"encoder.layers.{i}"
+        if cfg.scan_layers:
+            p, layer = ("encoder", "layers", "layer"), i
+        else:
+            p = ("encoder", f"layer_{i}")
         attn(f"{n}.self_attn", p + ("self_attn",), cfg.fused_qkv)
         ffn(f"{n}.ffn", p + ("FeedForward_0",))
         norm(f"{n}.ln1", p + ("LayerNorm_0",))
         norm(f"{n}.ln2", p + ("LayerNorm_1",))
+    layer = None
     norm("encoder.final_norm", ("encoder", "final_norm"))
 
-    out.append(("decoder.embed.weight", ("decoder", "embed", "embedding"), ("copy",),
-                (cfg.vocab_size, d)))
+    add("decoder.embed.weight", ("decoder", "embed", "embedding"), ("copy",),
+        (cfg.vocab_size, d))
     for i in range(cfg.num_decoder_layers):
         n, p = f"decoder.layers.{i}", ("decoder", f"layer_{i}")
         attn(f"{n}.self_attn", p + ("self_attn",), cfg.fused_qkv)
@@ -86,10 +103,11 @@ def _entries(cfg: ModelConfig):
     return out
 
 
-def _leaf(params: dict, path) -> np.ndarray:
+def _leaf(params: dict, path, layer=None) -> np.ndarray:
     for key in path:
         params = params[key]
-    return np.asarray(params)
+    x = np.asarray(params)
+    return x if layer is None else x[layer]
 
 
 def _to_port_layout(x: np.ndarray, kind) -> np.ndarray:
@@ -106,8 +124,8 @@ def params_from_jax(tree: dict, cfg: ModelConfig) -> StateDict:
     """flax param tree (numpy leaves) -> the port's float32 ``state_dict``."""
     params = tree.get("params", tree)
     sd: StateDict = {}
-    for name, path, kind, shape in _entries(cfg):
-        x = _leaf(params, path)
+    for name, path, kind, shape, layer in _entries(cfg):
+        x = _leaf(params, path, layer)
         if x.shape != shape:
             raise ValueError(f"{'/'.join(path)}: shape {x.shape}, expected {shape}")
         sd[name] = _to_torch(_to_port_layout(x, kind))
@@ -122,11 +140,11 @@ def quantized_from_jax(qparams: dict, scales: dict, cfg: ModelConfig):
     (per row for the embedding)."""
     qp, sc = qparams.get("params", qparams), scales.get("params", scales)
     out_q, out_s = params_from_jax(qp, cfg), {}
-    for name, path, kind, shape in _entries(cfg):
-        q = _leaf(qp, path)
+    for name, path, kind, shape, layer in _entries(cfg):
+        q = _leaf(qp, path, layer)
         if q.dtype != np.int8:
             continue
-        s = np.broadcast_to(_leaf(sc, path).astype(np.float32), shape)
+        s = np.broadcast_to(_leaf(sc, path, layer).astype(np.float32), shape)
         s = _to_port_layout(s, kind)          # output channels on axis 0
         out_s[name] = torch.from_numpy(np.array(s.reshape(s.shape[0], -1)[:, 0]))
     return out_q, out_s
@@ -143,19 +161,27 @@ def _to_torch(x: np.ndarray) -> torch.Tensor:
 def params_to_jax(state_dict: StateDict, cfg: ModelConfig) -> dict:
     """The port's ``state_dict`` -> ``{"params": tree}`` with numpy leaves
     (bfloat16 tensors, such as bf16 Adam moments, come back as float32
-    arrays holding the same values: numpy has no bfloat16 of its own)."""
-    tree: dict = {}
-    for name, path, kind, shape in _entries(cfg):
+    arrays holding the same values: numpy has no bfloat16 of its own).
+    With ``cfg.scan_layers`` the encoder layers are stacked as JAX's scan
+    keeps them."""
+    leaves: dict = {}
+    for name, path, kind, shape, layer in _entries(cfg):
         t = state_dict[name].detach().cpu()
         x = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         if kind[0] in ("dense", "bias"):
             x = x.T.reshape(shape)
         elif kind[0] == "conv":
             x = x.transpose(2, 3, 1, 0)
+        if layer is None:
+            leaves[path] = x
+        else:                       # a scanned leaf: its layers come in order
+            leaves.setdefault(path, []).append(x)
+    tree: dict = {}
+    for path, x in leaves.items():
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(x)
+        node[path[-1]] = np.ascontiguousarray(np.stack(x) if isinstance(x, list) else x)
     return {"params": tree}
 
 
@@ -175,18 +201,21 @@ def _find_moments(state):
 
 def adam_state_from_jax(opt_state, cfg: ModelConfig, *, device="cpu"):
     """A JAX ``FusedAdamState`` or optax chain state (numpy or jax leaves)
-    -> the port's ``ops.fused_adam.AdamState`` on ``device``. mu and nu
-    mirror the param tree, so they cross with ``params_from_jax``; their
-    dtype (f32 or bf16) is kept."""
+    -> the port's ``ops.fused_adam.AdamState`` on ``device``. mu, nu and,
+    with ``train.master_weights``, the f32 master mirror the param tree, so
+    they cross with ``params_from_jax``; their dtype (f32 or bf16) is kept."""
     from .ops.fused_adam import AdamState
 
     node = _find_moments(opt_state)
     if node is None:
         raise ValueError("optimizer state has no node with mu and nu")
+    master = getattr(node, "master", None)
+    trees = [node.mu, node.nu] + ([] if master is None else [master])
     moments = [{k: v.to(device) for k, v in params_from_jax(_as_numpy(tree), cfg).items()}
-               for tree in (node.mu, node.nu)]
+               for tree in trees]
     count = torch.tensor(int(np.asarray(node.count)), dtype=torch.int32, device=device)
-    return AdamState(count=count, mu=moments[0], nu=moments[1])
+    return AdamState(count=count, mu=moments[0], nu=moments[1],
+                     master=moments[2] if master is not None else None)
 
 
 def _as_numpy(tree):

@@ -11,8 +11,13 @@ remainder batch to its bucket's size.
 
 The features are computed on the device inside the step: fbank + CMVN run
 under ``torch.no_grad()`` through ``extract_features`` (the stft_mel kernel
-on a card, once per step), then the train step of ``train.py`` runs on the
-result (``make_preprocess_fn``, ``make_audio_train_step``).
+on a card, once per step), SpecAugment masks them when the config enables
+it, then the train step of ``train.py`` runs on the result
+(``make_preprocess_fn``, ``make_audio_train_step``). As JAX splits one
+step key into an augmentation key and a dropout key, the port draws the
+masks from a generator of (seed, step) on a stream of its own
+(``ops/dropout.AUGMENT_STREAM``), which leaves the dropout bits as they
+were. Evaluation and serving never augment.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ import numpy as np
 import torch
 
 from ..config import DataConfig, ExperimentConfig, FeatureConfig, SpecAugmentConfig
+from ..ops.dropout import AUGMENT_STREAM, step_generator
 from ..train import Batch, TrainState, make_train_step
+from .augment import spec_augment
 from .features import extract_features
 from .prepare import read_audio, read_manifest
 from .tokenizer import EOS, PAD, SOS
@@ -222,16 +229,17 @@ class BucketedBatcher:
 
 def make_preprocess_fn(feature_cfg: FeatureConfig,
                        spec_cfg: Optional[SpecAugmentConfig] = None):
-    """``preprocess(batch, device) -> Batch``: fbank + CMVN on ``device``."""
-    if spec_cfg is not None and spec_cfg.enabled:
-        raise NotImplementedError(
-            "SpecAugment is not ported yet (ROADMAP queue A, 'training "
-            "slice, left out'); set spec_augment.enabled=False")
+    """``preprocess(batch, device, generator=None) -> Batch``: fbank + CMVN
+    on ``device``, then SpecAugment when ``spec_cfg`` enables it and a
+    generator is given (on ``device``)."""
 
-    def preprocess(batch: AudioBatch, device) -> Batch:
+    def preprocess(batch: AudioBatch, device,
+                   generator: Optional[torch.Generator] = None) -> Batch:
         with torch.no_grad():
             feats, frame_lens = extract_features(batch.audio, batch.sample_lens,
                                                  feature_cfg, device=device)
+            if spec_cfg is not None and spec_cfg.enabled and generator is not None:
+                feats = spec_augment(generator, feats, frame_lens, spec_cfg)
         return Batch(feats=feats, frame_lens=frame_lens,
                      targets_in=batch.targets_in, targets_out=batch.targets_out,
                      target_lens=batch.target_lens).to(device)
@@ -241,11 +249,15 @@ def make_preprocess_fn(feature_cfg: FeatureConfig,
 
 def make_audio_train_step(cfg: ExperimentConfig):
     """``step(state, audio_batch, seed=cfg.train.seed) -> (state, metrics)``:
-    on-device preprocess → model → loss → update."""
+    on-device preprocess (SpecAugment drawn from (seed, state.step) on its
+    own stream) → model → loss → update."""
     preprocess = make_preprocess_fn(cfg.features, cfg.spec_augment)
     inner = make_train_step(cfg)
+    augment = cfg.spec_augment.enabled
 
     def step(state: TrainState, abatch: AudioBatch, seed: int = cfg.train.seed):
-        return inner(state, preprocess(abatch, state.device), seed)
+        gen = (step_generator(seed, state.step, state.device, AUGMENT_STREAM)
+               if augment else None)
+        return inner(state, preprocess(abatch, state.device, gen), seed)
 
     return step

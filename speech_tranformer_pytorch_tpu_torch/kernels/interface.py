@@ -8,10 +8,11 @@ fails to build or launch raises. Each kernel wrapper counts its launches;
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
+from ..ops import masks
 from . import beam_prune, flash_attention as flash, fused_adam as adam
 from . import int8_ffn as ffn8, int8_matmul as mm8
 from . import lineage_attention as lineage, stft_mel
@@ -24,6 +25,7 @@ _WRAPPERS = {
     "flash_bwd_dkv": flash.flash_bwd_dkv_cuda,
     "flash_bwd_dq": flash.flash_bwd_dq_cuda,
     "fused_adam": adam.fused_adam_cuda,
+    "fused_adam_master": adam.fused_adam_master_cuda,
     "int8_matmul": mm8.int8_matmul_cuda,
     "int8_ffn": ffn8.int8_ffn_cuda,
 }
@@ -61,22 +63,54 @@ def lineage_attention(q_new, self_k, self_v, lineage_table, index, beam_width):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_lengths: torch.Tensor, causal: bool,
-                    dropout_rate: float = 0.0,
-                    deterministic: bool = True) -> torch.Tensor:
+                    q_lengths: Optional[torch.Tensor] = None,
+                    dropout_rate: float = 0.0, deterministic: bool = True,
+                    generator: Optional[torch.Generator] = None,
+                    remat: bool = False) -> torch.Tensor:
     """[B, T, H, D] x [B, S, H, D] -> [B, T, H, D] attention with ragged key
     lengths (kernels/flash_attention.py): the autograd Function over the
     three kernels for CUDA tensors, the plain version with torch autograd
-    for CPU tensors. Attention dropout is not ported."""
+    for CPU tensors. These keep flash semantics: keys masked by length (and
+    causally), query rows not masked.
+
+    With attention dropout active (``dropout_rate > 0 and not
+    deterministic``, JAX's condition at ``kernels/interface.py:49``) the
+    call goes to ``models.modules.dot_product_attention`` instead, as JAX
+    routes it: no TPU flash kernel drops anything. That route masks as
+    JAX's dot path does, with an additive bias of the key lengths, the
+    causal order and, given ``q_lengths``, the query lengths; ``generator``
+    draws its dropout bits, and ``remat`` checkpoints it
+    (``model.attention_remat``; the flash route already recomputes from
+    the log-sum-exp, so there it changes nothing)."""
     if dropout_rate > 0.0 and not deterministic:
-        raise NotImplementedError(
-            "attention dropout (model.attention_dropout_rate > 0) is not "
-            "ported yet: ROADMAP queue A, 'training slice, left out'")
+        from ..models.modules import dot_product_attention
+        from ..ops.remat import remat as remat_call
+
+        bias = _attention_bias(q.shape[1], k.shape[1], kv_lengths, causal, q_lengths)
+        core = lambda q_, k_, v_, *, generator: dot_product_attention(
+            q_, k_, v_, bias, dropout_rate=dropout_rate, deterministic=False,
+            generator=generator)
+        if remat:
+            return remat_call(core, q, k, v, generator=generator)
+        return core(q, k, v, generator=generator)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))     # [B, H, T, D] views
     if _on_cuda(q):
         out = flash.FlashAttention.apply(qt, kt, vt, kv_lengths, causal)
     else:
         out = flash.flash_attention_reference(qt, kt, vt, kv_lengths, causal=causal)
     return out.transpose(1, 2)
+
+
+def _attention_bias(t: int, s: int, kv_lengths: torch.Tensor, causal: bool,
+                    q_lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B, 1, T, S] f32 additive bias: 0 where key j of query t is kept."""
+    keep = masks.length_mask(kv_lengths, s)[:, None, None, :]
+    if q_lengths is not None:
+        keep = keep & masks.length_mask(q_lengths, t)[:, None, :, None]
+    if causal:    # key j of query t kept iff j <= t
+        pos = torch.arange(max(t, s), device=kv_lengths.device)
+        keep = keep & (pos[None, :s] <= pos[:t, None])[None, None]
+    return masks.mask_to_bias(keep.expand(-1, 1, t, s))
 
 
 def flash_fwd(q, k, v, kv_lengths, *, causal: bool):
@@ -105,6 +139,19 @@ def fused_adam(params: List[torch.Tensor], grads: List[torch.Tensor],
     one kernel launch for CUDA tensors, the plain loop for CPU tensors."""
     fn = adam.fused_adam_cuda if _on_cuda(params[0]) else adam.adam_update_reference
     fn(params, grads, mus, nus, scalars, b1=b1, b2=b2, eps=eps,
+       weight_decay=weight_decay)
+
+
+def fused_adam_master(params: List[torch.Tensor], grads: List[torch.Tensor],
+                      masters: List[torch.Tensor], mus: List[torch.Tensor],
+                      nus: List[torch.Tensor], scalars: torch.Tensor, *, b1: float,
+                      b2: float, eps: float, weight_decay: float) -> None:
+    """The master-weights variant, in place: the f32 ``masters`` updated from
+    compute-dtype ``grads``, ``params`` set to them rounded
+    (kernels/fused_adam.py). Counted as ``fused_adam_master``."""
+    fn = (adam.fused_adam_master_cuda if _on_cuda(params[0])
+          else adam.adam_update_master_reference)
+    fn(params, grads, masters, mus, nus, scalars, b1=b1, b2=b2, eps=eps,
        weight_decay=weight_decay)
 
 

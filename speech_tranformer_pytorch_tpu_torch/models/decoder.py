@@ -15,6 +15,9 @@ For int8 serving (``ops/quantize.decode_model``) ``Decoder.use_int8`` swaps
 the dense layers for ``Int8Linear`` and the embedding for ``Int8Embedding``.
 The self cache is never reordered by the beam search: self-attention reads
 it through the lineage table (``kernels/interface.lineage_attention``).
+With ``model.remat`` each teacher-forced layer runs under
+``ops/remat.remat_module`` while gradients are taken (JAX
+``decoder.py:268-272``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ..config import ModelConfig
 from ..kernels import interface
 from ..ops import masks as mask_ops
 from ..ops.dropout import dropout
+from ..ops.remat import remat_module
 from .modules import (FeedForward, Int8Embedding, Int8Linear, LayerNorm,
                       MultiHeadAttention, PositionalEncoding)
 
@@ -42,9 +46,11 @@ class DecoderLayer(nn.Module):
         self.dropout_rate = cfg.dropout_rate
         self.self_attn = MultiHeadAttention(cfg.d_model, cfg.num_heads,
                                             fused_qkv=cfg.fused_qkv,
-                                            dropout_rate=cfg.attention_dropout_rate)
+                                            dropout_rate=cfg.attention_dropout_rate,
+                                            remat=cfg.attention_remat)
         self.cross_attn = MultiHeadAttention(cfg.d_model, cfg.num_heads,
-                                             dropout_rate=cfg.attention_dropout_rate)
+                                             dropout_rate=cfg.attention_dropout_rate,
+                                             remat=cfg.attention_remat)
         self.ffn = FeedForward(cfg.d_model, cfg.d_ff, cfg.dropout_rate)
         self.ln1 = LayerNorm(cfg.d_model)
         self.ln2 = LayerNorm(cfg.d_model)
@@ -57,9 +63,8 @@ class DecoderLayer(nn.Module):
         kw = dict(deterministic=deterministic, generator=generator)
         drop = lambda y: dropout(y, self.dropout_rate, **kw)
         self_attend = lambda h: self.self_attn(h, h, kv_lengths=tgt_lens, causal=True,
-                                               deterministic=deterministic)
-        cross_attend = lambda h: self.cross_attn(h, memory, kv_lengths=mem_lens,
-                                                 deterministic=deterministic)
+                                               q_lengths=tgt_lens, **kw)
+        cross_attend = lambda h: self.cross_attn(h, memory, kv_lengths=mem_lens, **kw)
         if self.normalize_before:
             x = x + drop(self_attend(self.ln1(x)))
             x = x + drop(cross_attend(self.ln2(x)))
@@ -145,6 +150,7 @@ class Decoder(nn.Module):
         self.final_norm = LayerNorm(cfg.d_model)
         self.out_proj = (None if cfg.share_embedding else
                          nn.Linear(cfg.d_model, cfg.vocab_size, bias=False))
+        self.remat = cfg.remat
 
     @property
     def dtype(self) -> torch.dtype:
@@ -202,8 +208,10 @@ class Decoder(nn.Module):
         kw = dict(deterministic=deterministic, generator=generator)
         x = self.pos_enc(self._embed_scaled(targets_in), **kw)
         mem = memory.to(x.dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, mem, tgt_lens, mem_lens, **kw)
+            x = (remat_module(layer, x, mem, tgt_lens, mem_lens, **kw) if remat
+                 else layer(x, mem, tgt_lens, mem_lens, **kw))
         return self._logits(self.final_norm(x))
 
     # ----- step decoding ---------------------------------------------------

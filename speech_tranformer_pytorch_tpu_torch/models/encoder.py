@@ -3,7 +3,13 @@
 {self-attention, feed-forward} with dropout on each sublayer's output and
 residuals, pre-LN by default or the paper's post-LN with
 ``normalize_before=False``, then a final LayerNorm and zeroed padding.
-Self-attention masks keys past each utterance's subsampled length."""
+Self-attention masks keys past each utterance's subsampled length.
+
+With ``model.remat`` each layer runs under ``ops/remat.remat_module`` while
+gradients are taken (JAX ``encoder.py:84-88, 138-141``): its activations
+are recomputed in the backward, with the forward's dropout bits. The layers
+are always built one by one; ``model.scan_layers`` only tells
+``convert.py`` how a JAX tree stacks them."""
 
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import masks as mask_ops
 from ..ops.dropout import dropout
+from ..ops.remat import remat_module
 from .modules import (Conv2dSubsampling, FeedForward, LayerNorm,
                       MultiHeadAttention, PositionalEncoding, subsampled_lengths)
 
@@ -26,7 +33,8 @@ class EncoderLayer(nn.Module):
         self.dropout_rate = cfg.dropout_rate
         self.self_attn = MultiHeadAttention(cfg.d_model, cfg.num_heads,
                                             fused_qkv=cfg.fused_qkv,
-                                            dropout_rate=cfg.attention_dropout_rate)
+                                            dropout_rate=cfg.attention_dropout_rate,
+                                            remat=cfg.attention_remat)
         self.ffn = FeedForward(cfg.d_model, cfg.d_ff, cfg.dropout_rate)
         self.ln1 = LayerNorm(cfg.d_model)
         self.ln2 = LayerNorm(cfg.d_model)
@@ -36,8 +44,8 @@ class EncoderLayer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         kw = dict(deterministic=deterministic, generator=generator)
         drop = lambda y: dropout(y, self.dropout_rate, **kw)
-        attn = lambda h: self.self_attn(h, h, kv_lengths=lengths,
-                                        deterministic=deterministic)
+        attn = lambda h: self.self_attn(h, h, kv_lengths=lengths, q_lengths=lengths,
+                                        **kw)
         if self.normalize_before:
             h = self.ln1(x)
             x = x + drop(attn(h))
@@ -56,6 +64,7 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(EncoderLayer(cfg)
                                     for _ in range(cfg.num_encoder_layers))
         self.final_norm = LayerNorm(cfg.d_model)
+        self.remat = cfg.remat
 
     def forward(self, feats: torch.Tensor, frame_lens: torch.Tensor, *,
                 deterministic: bool = True,
@@ -65,8 +74,10 @@ class Encoder(nn.Module):
         kw = dict(deterministic=deterministic, generator=generator)
         x = self.pos_enc(self.subsample(feats), **kw)
         out_lens = subsampled_lengths(frame_lens)
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, out_lens, **kw)
+            x = (remat_module(layer, x, out_lens, **kw) if remat
+                 else layer(x, out_lens, **kw))
         x = self.final_norm(x)
         valid = mask_ops.length_mask(out_lens, x.shape[1])[..., None]
         return x * valid.to(x.dtype), out_lens

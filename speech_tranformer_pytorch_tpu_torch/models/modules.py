@@ -9,7 +9,9 @@ lengths and the causal flag the JAX package passes; query rows are not
 masked (flash semantics), so rows past a length hold finite values that
 the loss ignores. Layouts follow the JAX package at the function
 boundaries: activations are [B, T, d], attention heads [B, T, H, D], the
-cross-attention cache head-major [B, H, S, D].
+cross-attention cache head-major [B, H, S, D]. With attention dropout
+active, ``interface.flash_attention`` sends attention to
+``dot_product_attention`` instead, as JAX routes it.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..kernels import interface
-from ..ops.dropout import dropout
+from ..ops.dropout import dropout, dropout_quantized
 
 
 def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
@@ -92,15 +94,42 @@ class Conv2dSubsampling(nn.Module):
         return self.out(x)
 
 
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor], *, dropout_rate: float = 0.0,
+                          deterministic: bool = True,
+                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """[B, T, H, D] x [B, S, H, D] -> [B, T, H, D]: the JAX package's jnp
+    attention (``models/modules.py:383-412``). Scores in f32 over
+    1/sqrt(D), plus the additive ``bias`` (broadcastable to [B, H, T, S]),
+    an f32 softmax, u8 dropout of the weights (``dropout_quantized``) when
+    training, a cast to v's dtype, then the product with V.
+
+    JAX's ``bf16_weights`` route (its bf16-residual backward) is taken only
+    when no dropout is active; the port sends every such call to the flash
+    kernels, so this core never needs it."""
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    scores = scores / math.sqrt(q.shape[-1])
+    if bias is not None:
+        scores = scores + bias.float()
+    weights = torch.softmax(scores, dim=-1)
+    if not deterministic and dropout_rate > 0.0:
+        weights = dropout_quantized(weights, dropout_rate, generator)
+    return torch.einsum("bhts,bshd->bthd", weights.to(v.dtype), v)
+
+
 class MultiHeadAttention(nn.Module):
     """Self/cross attention with ragged key lengths. ``fused_qkv``
-    (self-attention only) projects q, k and v with one [d, 3·d] matmul."""
+    (self-attention only) projects q, k and v with one [d, 3·d] matmul.
+    ``remat`` (``model.attention_remat``) checkpoints the dot core that
+    attention dropout routes to; on the flash route it changes nothing,
+    as the flash backward already recomputes from the log-sum-exp."""
 
     def __init__(self, d_model: int, num_heads: int, fused_qkv: bool = False,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, remat: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
+        self.remat = remat
         self.head_dim = d_model // num_heads
         self.fused_qkv = fused_qkv
         if fused_qkv:
@@ -131,14 +160,21 @@ class MultiHeadAttention(nn.Module):
         return self._heads(self.k(kv_in)), self._heads(self.v(kv_in))
 
     def attend(self, q_in, k, v, *, kv_lengths: torch.Tensor, causal: bool = False,
-               deterministic: bool = True, q: Optional[torch.Tensor] = None):
+               deterministic: bool = True, q: Optional[torch.Tensor] = None,
+               q_lengths: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None):
         """Attention against [B,S,H,D] keys/values (key j of row b kept iff
-        j < kv_lengths[b], and j <= t when causal), then the out projection."""
+        j < kv_lengths[b], and j <= t when causal), then the out projection.
+        ``q_lengths`` (self-attention) also masks query rows on the dropout
+        route, as JAX's self-attention bias does; ``generator`` draws the
+        attention-dropout bits."""
         if q is None:
             q = self.project_q(q_in)
         out = interface.flash_attention(q, k, v, kv_lengths=kv_lengths, causal=causal,
+                                        q_lengths=q_lengths,
                                         dropout_rate=self.dropout_rate,
-                                        deterministic=deterministic)
+                                        deterministic=deterministic,
+                                        generator=generator, remat=self.remat)
         return self.out(out.flatten(-2))
 
     def attend_bhsd(self, q_in: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -155,13 +191,15 @@ class MultiHeadAttention(nn.Module):
         return self.out(out.transpose(1, 2).flatten(-2))
 
     def forward(self, q_in, kv_in, *, kv_lengths: torch.Tensor, causal: bool = False,
-                deterministic: bool = True):
+                deterministic: bool = True, q_lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         if self.fused_qkv and q_in is kv_in:
             q, k, v = self.project_qkv(q_in)
         else:
             q, (k, v) = None, self.project_kv(kv_in)
         return self.attend(q_in, k, v, kv_lengths=kv_lengths, causal=causal,
-                           deterministic=deterministic, q=q)
+                           deterministic=deterministic, q=q, q_lengths=q_lengths,
+                           generator=generator)
 
 
 class Int8Linear(nn.Module):

@@ -4,8 +4,9 @@ An element is kept iff its random byte is >= q = round(256·rate), and kept
 elements are scaled by 256/(256 − q), so the keep probability is exactly
 (256 − q)/256 and the estimator stays unbiased (rate 0.1 keeps 230/256).
 The bytes come from an explicit ``torch.Generator``; ``step_generator``
-derives one from (seed, step), the counterpart of ``train.dropout_key``.
-The bits cannot match JAX's: tests hold the invariants instead.
+derives one from (seed, step), the counterpart of ``train.dropout_key``,
+and other streams of the same step (SpecAugment's) from (seed, step,
+stream). The bits cannot match JAX's: tests hold the invariants instead.
 """
 
 from __future__ import annotations
@@ -39,8 +40,17 @@ def dropout(x: torch.Tensor, rate: float, *, deterministic: bool,
     return dropout_quantized(x, rate, generator)
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """A generator on ``device`` seeded from (seed, step) alone."""
+DROPOUT_STREAM, AUGMENT_STREAM = 0, 1
+
+
+def step_generator(seed: int, step: int, device,
+                   stream: int = DROPOUT_STREAM) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, step) alone. Stream 0
+    (dropout) keeps the seeding of the first train steps the port shipped;
+    another stream is a child of the same (seed, step) entropy with its own
+    spawn key, so its draws leave stream 0's bits as they were."""
+    ss = np.random.SeedSequence([int(seed), int(step)],
+                                spawn_key=(int(stream),) if stream else ())
     g = torch.Generator(device=device)
-    g.manual_seed(int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1)[0]))
+    g.manual_seed(int(ss.generate_state(1)[0]))
     return g

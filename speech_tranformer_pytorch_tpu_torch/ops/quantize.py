@@ -58,7 +58,7 @@ def quantize_params(params: StateDict, cfg: ModelConfig, *,
     the float leaf itself for the rest. ``scales`` maps each quantized key
     to its f32 per-output-column vector [shape[0]]."""
     qparams, scales = dict(params), {}
-    for name, _, kind, shape in _entries(cfg):
+    for name, _, kind, shape, _ in _entries(cfg):
         w = params[name]
         if name == EMBED and embedding_rows:
             q, s = _quantize(w, (1,))                 # one scale per row

@@ -8,8 +8,13 @@ cast copy through ``torch.func.functional_call``; the cast's backward
 brings the gradients back to f32 for the optimizer. The optimizer is
 ``ops/fused_adam.FusedAdam`` whatever ``train.fused_optimizer`` says: one
 kernel launch over all leaves on a card, its plain version on the CPU
-(the two compute the optax chain's function). Metrics stay on the device
-until the caller reads them; the step never waits on the device.
+(the two compute the optax chain's function). With ``train.master_weights``
+(JAX ``train.py:244-267``) the model holds its parameters in
+``model.dtype`` and the f32 master lives in ``AdamState.master``: no step
+casts the tree, the gradients stay in the compute dtype and the
+optimizer's master variant writes the rounded master back into the model.
+Metrics stay on the device until the caller reads them; the step never
+waits on the device.
 """
 
 from __future__ import annotations
@@ -34,9 +39,10 @@ Metrics = Dict[str, torch.Tensor]
 @dataclasses.dataclass
 class TrainState:
     """``step`` counts completed steps on the host (it seeds the dropout
-    generator); ``model`` holds the f32 master parameters, which the
-    optimizer updates in place; ``opt`` holds the moments and the device
-    step count the schedule reads."""
+    and SpecAugment generators); ``model`` holds the f32 master parameters
+    (with ``train.master_weights``: their compute-dtype cast), which the
+    optimizer updates in place; ``opt`` holds the moments, the device step
+    count the schedule reads and, with master weights, the master."""
     step: int
     model: SpeechTransformer
     opt: AdamState
@@ -97,7 +103,10 @@ def create_train_state(cfg: ExperimentConfig, *, device: DeviceLike = None,
     CPU) with f32 master parameters: ``params`` (a state_dict, for example
     ``convert.params_from_jax``) or seeded random weights drawn on the CPU,
     so every device starts from the same weights. ``opt`` defaults to zero
-    moments (``convert.adam_state_from_jax`` brings a JAX one over)."""
+    moments (``convert.adam_state_from_jax`` brings a JAX one over). With
+    ``train.master_weights`` a default ``opt`` takes the f32 parameters as
+    its master and the model is cast to ``model.dtype``; a given ``opt``
+    must carry its master."""
     dev = resolve_device(device)
     model = SpeechTransformer(cfg.model)
     if params is None:
@@ -107,6 +116,13 @@ def create_train_state(cfg: ExperimentConfig, *, device: DeviceLike = None,
     model = model.to(dev, torch.float32).train()
     if opt is None:
         opt = make_fused_opt(cfg).init(dict(model.named_parameters()))
+    if cfg.train.master_weights:
+        dt = compute_cast_dtype(cfg)
+        if opt.master is None or dt is None:
+            raise ValueError("train.master_weights needs mixed precision with a "
+                             "non-f32 model.dtype and an optimizer state with "
+                             "its f32 master")
+        model = model.to(dt)
     return TrainState(step=0, model=model, opt=opt)
 
 
@@ -120,14 +136,18 @@ def _loss_and_metrics(cfg, logits, batch) -> Tuple[torch.Tensor, Metrics]:
 def loss_and_grads(cfg: ExperimentConfig, state: TrainState, batch: Batch,
                    seed: int) -> Tuple[Dict[str, torch.Tensor], Metrics]:
     """Forward with dropout on the compute-dtype cast of the master
-    parameters, then the f32 gradients of the loss. Returns (grads by
-    parameter name, metrics with loss, tokens and accuracy)."""
+    parameters, then the f32 gradients of the loss (with master weights:
+    on the model's compute-dtype parameters themselves, and gradients in
+    that dtype). Returns (grads by parameter name, metrics with loss,
+    tokens and accuracy)."""
     drops = cfg.model.dropout_rate > 0.0 or cfg.model.attention_dropout_rate > 0.0
     gen = step_generator(seed, state.step, state.device) if drops else None
     params = state.params
+    compute = params if cfg.train.master_weights else cast_params(
+        params, compute_cast_dtype(cfg))
     with torch.enable_grad():
         logits = functional_call(
-            state.model, cast_params(params, compute_cast_dtype(cfg)),
+            state.model, compute,
             (batch.feats, batch.frame_lens, batch.targets_in, batch.target_lens),
             {"deterministic": False, "generator": gen})
         loss, metrics = _loss_and_metrics(cfg, logits, batch)

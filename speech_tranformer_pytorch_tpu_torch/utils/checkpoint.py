@@ -2,15 +2,16 @@
 
 One file a step, ``step_<n>.pt``, written with ``torch.save`` to a
 temporary name and renamed into place, so a crash never leaves a partial
-checkpoint. It holds everything a bit-exact resume needs: the f32 master
-parameters, the Adam moments in their own dtype and the device step
-count, the host step, the epoch and the batch in it, and the best dev loss
-and its step. The model hash goes beside it as ``config_hash.txt``, as the
+checkpoint. It holds everything a bit-exact resume needs: the model's
+parameters (the f32 masters, or with ``train.master_weights`` their
+compute-dtype cast beside the f32 master of the Adam state), the Adam
+moments in their own dtype and the device step count, the host step, the
+epoch and the batch in it, and the best dev loss and its step. The model hash goes beside it as ``config_hash.txt``, as the
 JAX package writes it, so the two packages' runs compare by that file.
 
-There is no RNG key: the port's dropout bits come from a generator seeded
-by (seed, step) alone (``ops/dropout.step_generator``), so the step
-restores them. Saving is synchronous; ``wait`` has nothing to wait for.
+There is no RNG key: the port's dropout and SpecAugment bits come from
+generators seeded by (seed, step) alone (``ops/dropout.step_generator``),
+so the step restores them. Saving is synchronous; ``wait`` has nothing to wait for.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
 @dataclasses.dataclass
 class CheckpointState:
-    """``params`` is the f32 master ``state_dict`` and ``opt`` its Adam
-    state; ``best_dev_loss`` and ``best_dev_step`` keep best-model tracking
+    """``params`` is the model's ``state_dict`` and ``opt`` its Adam state
+    (with its f32 master under master weights); ``best_dev_loss`` and ``best_dev_step`` keep best-model tracking
     across a restart."""
     params: Dict[str, torch.Tensor]
     opt: AdamState
@@ -77,6 +78,7 @@ class Checkpointer:
         payload = {
             "params": ckpt.params,
             "mu": ckpt.opt.mu, "nu": ckpt.opt.nu, "count": ckpt.opt.count,
+            "master": ckpt.opt.master,
             "meta": {"step": int(step), "epoch": int(ckpt.epoch),
                      "batch_in_epoch": int(ckpt.batch_in_epoch),
                      "best_dev_loss": float(ckpt.best_dev_loss),
@@ -108,7 +110,8 @@ class Checkpointer:
                 config_hash = f.read().strip()
         m = d["meta"]
         return step, CheckpointState(
-            params=d["params"], opt=AdamState(count=d["count"], mu=d["mu"], nu=d["nu"]),
+            params=d["params"], opt=AdamState(count=d["count"], mu=d["mu"], nu=d["nu"],
+                                              master=d.get("master")),
             epoch=m["epoch"], batch_in_epoch=m["batch_in_epoch"],
             config_hash=config_hash, best_dev_loss=m["best_dev_loss"],
             best_dev_step=m["best_dev_step"], num_devices=m["num_devices"])

@@ -180,10 +180,21 @@ def test_aligned_operands_for_the_forward():
     assert [tuple(g.shape) for g in got] == [(2, 4, 5, 24), (2, 4, 3, 24), (2, 4, 5, 24)]
 
 
-def test_dispatch_rules():
+def test_dispatch_rules(monkeypatch):
+    from speech_tranformer_pytorch_tpu_torch.kernels import flash_attention as flash
+
     q = torch.zeros(1, 4, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        interface.flash_attention(q, q, q, kv_lengths=torch.tensor([4]), causal=False,
-                                  dropout_rate=0.1, deterministic=False)
+    # Attention dropout, while training, routes to the dot-product core (as
+    # JAX routes it): the flash path's plain version is not called.
+    calls = []
+    real = flash.flash_attention_reference
+    monkeypatch.setattr(flash, "flash_attention_reference",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    out = interface.flash_attention(q, q, q, kv_lengths=torch.tensor([4]), causal=False,
+                                    dropout_rate=0.1, deterministic=False)
+    assert calls == [] and out.shape == q.shape
+    interface.flash_attention(q, q, q, kv_lengths=torch.tensor([4]), causal=False,
+                              dropout_rate=0.1, deterministic=True)
+    assert calls == [1]
     with pytest.raises(ValueError, match="CUDA"):
         flash_fwd_cuda(q, q, q, torch.tensor([4]), causal=False)

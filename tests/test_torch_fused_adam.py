@@ -18,7 +18,8 @@ torch = pytest.importorskip("torch")
 from speech_tranformer_pytorch_tpu.ops.fused_adam import FusedAdam as JaxFusedAdam  # noqa: E402
 from speech_tranformer_pytorch_tpu.ops.schedules import (  # noqa: E402
     make_optimizer, noam_schedule as jax_noam)
-from speech_tranformer_pytorch_tpu_torch.kernels.fused_adam import fused_adam_cuda  # noqa: E402
+from speech_tranformer_pytorch_tpu_torch.kernels.fused_adam import (  # noqa: E402
+    fused_adam_cuda, fused_adam_master_cuda)
 from speech_tranformer_pytorch_tpu_torch.ops.fused_adam import (  # noqa: E402
     FusedAdam, global_norm_f32)
 from speech_tranformer_pytorch_tpu_torch.ops.schedules import noam_schedule  # noqa: E402
@@ -92,5 +93,13 @@ def test_global_norm_and_dispatch():
     with pytest.raises(ValueError, match="CUDA"):
         fused_adam_cuda([g[0]], [g[0]], [g[0]], [g[0]], torch.zeros(4), b1=0.9,
                         b2=0.98, eps=1e-9, weight_decay=0.0)
-    with pytest.raises(NotImplementedError, match="master_weights"):
-        FusedAdam(noam_schedule(64, 100), master_weights=True)
+    # master_weights is ported: the update needs the state's f32 master, and
+    # the master variant's wrapper, like the classic one, needs the card.
+    opt = FusedAdam(noam_schedule(64, 100), master_weights=True)
+    state = FusedAdam(noam_schedule(64, 100)).init({"w": g[0]})
+    with pytest.raises(ValueError, match="master"):
+        opt.update_apply({"w": g[0]}, state, {"w": g[0].to(torch.bfloat16)})
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_adam_master_cuda([g[0].bfloat16()], [g[0].bfloat16()], [g[0]], [g[0]],
+                               [g[0]], torch.zeros(4), b1=0.9, b2=0.98, eps=1e-9,
+                               weight_decay=0.0)

@@ -179,6 +179,63 @@ def test_resume_is_bit_exact_with_dropout(corpus, tmp_path):
             assert a.dtype == b.dtype == torch.bfloat16 and torch.equal(a, b), (m, k)
 
 
+def test_resume_is_bit_exact_with_spec_augment_and_master_weights(corpus, tmp_path):
+    """SpecAugment masks and dropout bits are functions of (seed, step) and
+    the checkpoint carries the f32 master: a run stopped mid-epoch resumes
+    bit for bit."""
+    cfg = _cfg(**{"model.dropout_rate": 0.1, "model.dtype": "bfloat16",
+                  "spec_augment.enabled": True, "train.fused_optimizer": True,
+                  "train.master_weights": True, "train.batch_size": 4,
+                  "train.checkpoint_every_steps": 100, "train.log_every": 2})
+    kw = dict(train_manifest=corpus["train"], device="cpu")
+    straight = Trainer(cfg, work_dir=str(tmp_path / "a"), **kw).train(max_steps=6)
+    Trainer(cfg, work_dir=str(tmp_path / "b"), **kw).train(max_steps=3)
+    resumed = Trainer(cfg, work_dir=str(tmp_path / "b"), resume=True, **kw)
+    assert (resumed.state.step, resumed.start_epoch, resumed.start_batch) == (3, 1, 1)
+    assert resumed.state.opt.master is not None
+    resumed = resumed.train(max_steps=6)
+    assert resumed.step == straight.step == 6
+    for k, p in straight.params.items():
+        assert p.dtype == torch.bfloat16 and torch.equal(resumed.params[k], p), k
+        for m in ("mu", "nu", "master"):
+            a, b = getattr(resumed.opt, m)[k], getattr(straight.opt, m)[k]
+            assert torch.equal(a, b), (m, k)
+    unaugmented = Trainer(cfg.replace(spec_augment=cfg.spec_augment.replace(enabled=False)),
+                          work_dir=str(tmp_path / "c"), **kw).train(max_steps=6)
+    assert not torch.equal(unaugmented.opt.master["encoder.subsample.conv0.weight"],
+                           straight.opt.master["encoder.subsample.conv0.weight"])
+
+
+@pytest.mark.parametrize("preset", ["large", "librispeech"])
+def test_large_and_librispeech_presets_train(preset, corpus, tmp_path):
+    """The two presets that need SpecAugment (and, for ``large``, remat and
+    the scanned layout), cut to 1+1 layers and a narrow width, take two
+    steps through the ``Trainer`` with dev evaluation; ``large`` once more
+    with master weights, served from ``work_dir/best``."""
+    from speech_tranformer_pytorch_tpu_torch.recognize import load_recognizer
+
+    over = dict(SMALL, **{"model.dropout_rate": 0.1, "data.bpe_vocab_size": 32,
+                          "train.batch_size": 4, "train.eval_every_steps": 2,
+                          "train.checkpoint_every_steps": 100, "train.log_every": 1,
+                          "train.dev_decode_batches": 1, "decode.max_decode_len": 4})
+    variants = [over]
+    if preset == "large":
+        variants.append(dict(over, **{"train.fused_optimizer": True,
+                                      "train.master_weights": True}))
+    for i, o in enumerate(variants):
+        cfg = config.get_config(preset, **o)
+        assert cfg.spec_augment.enabled and cfg.model.remat == (preset == "large")
+        work = str(tmp_path / f"w{i}")
+        state = Trainer(cfg, work_dir=work, train_manifest=corpus["train"],
+                        dev_manifest=corpus["dev"], device="cpu").train(max_steps=2)
+        assert state.step == 2 and all(math.isfinite(r["loss"]) for r in _records(work)
+                                       if "loss" in r)
+        rec = load_recognizer(cfg, f"{work}/best", device="cpu")
+        served = dict(rec.model.named_parameters())
+        for k, p in state.params.items():
+            assert torch.equal(served[k], p.detach().to(served[k].dtype)), k
+
+
 def test_best_model_tracking_resume_safe(corpus, tmp_path):
     cfg = _cfg(**{"train.batch_size": 4, "train.num_epochs": 50,
                   "train.log_every": 100, "train.checkpoint_every_steps": 100,
