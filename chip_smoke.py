@@ -66,7 +66,15 @@ Phases (any failure exits non-zero before the final line):
      and the drive recipe (``drive_recipe``): ``prepare_cli``,
      ``train_cli`` (straight, and halfway then ``--resume``) and
      ``recognize_cli`` as child processes, ending in ``"cer": 0.0``;
-  8. one JSON line per kernel set, then ``{"ok": true, "device": ...}``.
+  8. the parallel path (``parallel_path``): one NCCL rank per card; the
+     ``sharded`` preset at full width and depth trained on a (1, n) mesh
+     against the single-device step, sharded beam-5 and greedy decoding
+     against the single-device ``Recognizer``, then ``base`` through
+     ``Trainer(mesh=...)`` (with dev evaluations; resumed bit-identically) and
+     ``decode_manifest(distributed=True)``, with exact launches; the
+     ring route of the flash kernels is checked at the ``sharded``
+     encoder shape by ``check_ring_blocks``;
+  9. one JSON line per kernel set, then ``{"ok": true, "device": ...}``.
 ``--phases`` runs a subset (the kernel checks need no main path); with no
 arguments every phase runs. Imports nothing of JAX or of the JAX package.
 """
@@ -76,6 +84,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -329,20 +338,26 @@ def check_beam_prune(torch, dev):
 # Tolerances as the JAX goldens (tests/test_lineage_attention_kernel.py):
 # f32 2e-6 (summation order only), bf16 2e-2 (the weights are rounded to
 # bf16 before the AV product). Every case must be bit-identical on a
-# second call. Timed in bf16 at index 0, 49 and 99 of the beam-5 cache and
-# at K = 1 on 8 rows; the kernels line reports index 49.
-LINEAGE_TIMED = (("beam5", 5, 100, 0), ("beam5", 5, 100, 49), ("beam5", 5, 100, 99),
-                 ("greedy", 1, 100, 49))
+# second call. The `sharded` preset's decode in parallel_path runs the
+# kernel at D 128 (16 lanes a row, not 8) with 16 heads on one card and 4
+# a rank under TP 4: both are checked on its 40 rows x L 100 at index 0,
+# 49 and 99 and at K = 1. Timed in bf16 at index 0, 49 and 99 of the
+# beam-5 cache, at K = 1 on 8 rows and at the sharded shape on one card;
+# the kernels line reports the base cache at index 49.
+LINEAGE_TIMED = (("beam5", 5, 100, 0, 8, 64), ("beam5", 5, 100, 49, 8, 64),
+                 ("beam5", 5, 100, 99, 8, 64), ("greedy", 1, 100, 49, 8, 64),
+                 ("sharded_beam5", 5, 100, 49, 16, 128))
+LINEAGE_SHARDED = ((16, 128), (4, 128))      # heads, head_dim of a sharded rank
 
 
 def check_lineage(torch, dev):
     from torch.nn import functional as F
     from speech_tranformer_pytorch_tpu_torch.kernels import lineage_attention as la
 
-    b, h, d = 8, 8, 64
+    b = 8
     g = torch.Generator().manual_seed(2)
 
-    def inputs(index, dtype, k=5, L=100, shared=False):
+    def inputs(index, dtype, k=5, L=100, shared=False, h=8, d=64):
         q = torch.randn(b * k, 1, h, d, generator=g)
         ck = torch.randn(b * k, L, h, d, generator=g)
         cv = torch.randn(b * k, L, h, d, generator=g)
@@ -356,6 +371,8 @@ def check_lineage(torch, dev):
     cases += [("shared_history,index=49", dict(index=49, shared=True)),
               ("L=256,index=200", dict(index=200, L=256))]
     cases += [(f"K=1,index={i}", dict(index=i, k=1)) for i in (0, 31, 99)]
+    cases += [(f"H={h},D={d},K={k},index={i}", dict(index=i, k=k, h=h, d=d))
+              for h, d in LINEAGE_SHARDED for k in (5, 1) for i in (0, 49, 99)]
     errs, failed = {}, []
     for dtype, atol in ((torch.float32, 2e-6), (torch.bfloat16, 2e-2)):
         for label, kw in cases:
@@ -377,8 +394,8 @@ def check_lineage(torch, dev):
     if failed:
         raise AssertionError(f"lineage_attention differs on a second call: {failed}")
     recs = {}
-    for label, k, L, index in LINEAGE_TIMED:
-        args = inputs(index, torch.bfloat16, k=k, L=L)
+    for label, k, L, index, h, d in LINEAGE_TIMED:
+        args = inputs(index, torch.bfloat16, k=k, L=L, h=h, d=d)
         q, ck, cv, lin = args
         rows = b * k
         lin_all = lin[:, :, :index + 1].long()
@@ -414,7 +431,8 @@ def check_lineage(torch, dev):
                bound_by=main["bound_by"], library_ms=None, yardstick_ms=main["yardstick_ms"],
                yardstick_note="gather of the selected K/V rows + scaled_dot_product_attention "
                               "(not the same function: no bf16 rounding of the weights)",
-               shape=[b * 5, 100, h, d, 49])
+               shape=[b * 5, 100, 8, 64, 49],
+               sharded=recs[("sharded_beam5", 49)])
     emit({"check": rec})
     return rec
 
@@ -426,7 +444,10 @@ def check_lineage(torch, dev):
 # many tiles a block) and the `sharded` preset's head (D 128), causal and
 # not; and large_train_path's three shapes (B 96, H 12, D 64: encoder
 # self-attention at its subsampled frame counts, causal decoder
-# self-attention and cross-attention at its target lengths). Tolerances: f32 as the JAX goldens (tests/test_flash_attention.py:
+# self-attention and cross-attention at its target lengths), and the same
+# three at parallel_path's `sharded` train batch on one card (B 16, H 16,
+# D 128: the encoder's one ring block of its T' (741), the causal decoder
+# at U 64, cross-attention 64 x 741). Tolerances: f32 as the JAX goldens (tests/test_flash_attention.py:
 # 2e-3 forward, 5e-3 gradients); bf16 2e-2 of each tensor's largest value
 # plus 2e-2 relative, because the bf16 kernels round p (forward and
 # backward) and dS to bf16 before their tensor-core products, at other
@@ -436,18 +457,18 @@ FLASH_TOL = {"float32": ((2e-3, 2e-3), (5e-3, 5e-3)),
              "bfloat16": ((2e-2, 2e-2), (2e-2, 2e-2))}
 TRAIN_SHAPES = ("encoder_self", "decoder_self", "cross")
 LARGE_SHAPES = ("large_encoder_self", "large_decoder_self", "large_cross")
+SHARDED_SHAPES = ("sharded_encoder_self", "sharded_decoder_self", "sharded_cross")
 
 
-def _large_attention_lengths(torch):
-    """large_train_path's attention extents: (T', the encoder's subsampled
+def _attention_lengths(torch, preset, batch):
+    """A train batch's attention extents: (T', the encoder's subsampled
     frame counts, the target width, the target lengths)."""
     from speech_tranformer_pytorch_tpu_torch.config import get_config
     from speech_tranformer_pytorch_tpu_torch.data.features import (
         frame_lengths_from_sample_lengths, num_frames)
     from speech_tranformer_pytorch_tpu_torch.models.modules import subsampled_lengths
 
-    fcfg = get_config("large").features
-    batch = _large_audio(torch)
+    fcfg = get_config(preset).features
     t = num_frames(batch.audio.shape[1], fcfg.frame_length, fcfg.frame_shift)
     frames = torch.clamp(frame_lengths_from_sample_lengths(
         batch.sample_lens, fcfg.frame_length, fcfg.frame_shift), max=t)
@@ -466,8 +487,11 @@ def _flash_cases(torch):
     long = torch.tensor([750, 611, 402, 97], dtype=torch.int32)
     wide = torch.randint(99, 150, (8,), generator=g, dtype=torch.int32)
     wide[0] = 149
-    t_enc, enc_l, t_dec, dec_l = _large_attention_lengths(torch)
+    t_enc, enc_l, t_dec, dec_l = _attention_lengths(torch, "large", _large_audio(torch))
     bl = len(enc_l)
+    s_enc, senc_l, s_dec, sdec_l = _attention_lengths(torch, "sharded",
+                                                      _sharded_audio(torch))
+    bs = len(senc_l)
     # name, batch, Tq, Tk, kv_lengths, causal, q/k/v from one fused
     # projection, heads, head_dim
     return [("encoder_self", b, 149, 149, enc, False, True, 8, 64),
@@ -482,7 +506,10 @@ def _flash_cases(torch):
             ("wide_head_causal", 8, 149, 149, wide, True, True, 16, 128),
             ("large_encoder_self", bl, t_enc, t_enc, enc_l, False, True, 12, 64),
             ("large_decoder_self", bl, t_dec, t_dec, dec_l, True, True, 12, 64),
-            ("large_cross", bl, t_dec, t_enc, enc_l, False, False, 12, 64)]
+            ("large_cross", bl, t_dec, t_enc, enc_l, False, False, 12, 64),
+            ("sharded_encoder_self", bs, s_enc, s_enc, senc_l, False, False, 16, 128),
+            ("sharded_decoder_self", bs, s_dec, s_dec, sdec_l, True, True, 16, 128),
+            ("sharded_cross", bs, s_dec, s_enc, senc_l, False, False, 16, 128)]
 
 
 def _flash_inputs(torch, dev, dtype, b, tq, tk, fused, h, d):
@@ -542,7 +569,8 @@ def check_flash(torch, dev):
                 errs[gname] = check_close(f"{tag}.{gname}", got, want,
                                           ga_tol * (scale if dname == "bfloat16" else 1.0),
                                           gr_tol)
-            timed = dtype == torch.bfloat16 and name in TRAIN_SHAPES + LARGE_SHAPES
+            timed = dtype == torch.bfloat16 and name in (TRAIN_SHAPES + LARGE_SHAPES
+                                                         + SHARDED_SHAPES)
             if timed:   # no atomics: a second call gives the same bits
                 o2, lse2 = fa.flash_fwd_cuda(q, k, v, lens, causal=causal)
                 if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
@@ -568,7 +596,7 @@ def check_flash(torch, dev):
             # The plain versions hold [B, H, Tq, Tk] f32 tensors: fewer
             # calls at the large shapes.
             plain_ms = (lambda fn: device_ms(torch, fn, reps=3, rounds=3)
-                        if name in LARGE_SHAPES else device_ms(torch, fn))
+                        if name in LARGE_SHAPES + SHARDED_SHAPES else device_ms(torch, fn))
             rec = {
                 "flash_fwd": dict(
                     ms=device_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, lens, causal=causal)),
@@ -608,7 +636,7 @@ def check_flash(torch, dev):
     # The kernels line reports the base encoder self-attention shape; each
     # base train step runs every base shape 6 times. A large step runs the
     # encoder shape 12 times and the decoder shapes 6 times each, and every
-    # forward twice under remat.
+    # forward twice under remat; so does a `sharded` step on one card.
     per_step = lambda kname, shapes, reps: {
         k: sum(n * per_shape[s][kname][k] for s, n in zip(shapes, reps))
         for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -623,7 +651,10 @@ def check_flash(torch, dev):
                    shape=[64, 8, 149, 149, 64],
                    per_train_step_ms=per_step(kname, TRAIN_SHAPES, (6, 6, 6)),
                    per_large_train_step_ms=per_step(
-                       kname, LARGE_SHAPES, (24, 12, 12) if kname == "flash_fwd" else (12, 6, 6)))
+                       kname, LARGE_SHAPES, (24, 12, 12) if kname == "flash_fwd" else (12, 6, 6)),
+                   per_sharded_train_step_ms=per_step(
+                       kname, SHARDED_SHAPES,
+                       (24, 12, 12) if kname == "flash_fwd" else (12, 6, 6)))
         emit({"check": rec})
         recs.append(rec)
     return recs
@@ -649,21 +680,23 @@ def _classic_adam_case(torch, fa, tag, params, grads, mu0, nu0, mdt, sc, hyper):
         fn(p, grads, mu, nu, sc, **hyper)
         runs.append((p, mu, nu))
     torch.cuda.synchronize()
-    cat = lambda xs: torch.cat([x.reshape(-1).float() for x in xs])
     rec = {}
     for i, what in enumerate(("p", "mu", "nu")):
-        a, again, b = (cat(r[i]) for r in runs)
-        diff = (a - b).abs()
-        if mdt == torch.bfloat16 and what != "p":
-            bad = diff > _bf16_ulp(torch, b)      # within one bf16 ulp
-        else:
-            bad = diff > 1e-6 * b.abs()           # within 1e-6 relative
-        if bool(bad.any()):
-            raise AssertionError(f"{tag}.{what}: {int(bad.sum())} elements off; "
-                                 f"max abs err {float(diff.max())}")
-        if not torch.equal(a, again):
-            raise AssertionError(f"{tag}.{what}: differs on a second call")
-        rec[what] = {"max_abs_err": float(diff.max()), "bit_exact": bool(torch.equal(a, b)),
+        worst, exact = 0.0, True
+        for a, again, b in zip(*(r[i] for r in runs)):      # leaf by leaf
+            a, again, b = a.float(), again.float(), b.float()
+            diff = (a - b).abs()
+            if mdt == torch.bfloat16 and what != "p":
+                bad = diff > _bf16_ulp(torch, b)      # within one bf16 ulp
+            else:
+                bad = diff > 1e-6 * b.abs()           # within 1e-6 relative
+            if bool(bad.any()):
+                raise AssertionError(f"{tag}.{what}: {int(bad.sum())} elements off; "
+                                     f"max abs err {float(diff.max())}")
+            if not torch.equal(a, again):
+                raise AssertionError(f"{tag}.{what}: differs on a second call")
+            worst, exact = max(worst, float(diff.max())), exact and bool(torch.equal(a, b))
+        rec[what] = {"max_abs_err": worst, "bit_exact": exact,
                      "second_call_bit_equal": True}
     emit({"check": {"name": tag, **rec}})
     return (rec, *runs[0])
@@ -717,17 +750,81 @@ def check_adam(torch, dev):
     nbytes = 20 * n                   # g, p, mu, nu read; p, mu, nu written (bf16 moments)
     bound_ms, bound_by = bound(nbytes, 16 * n)
     master_rec, large = check_adam_master(torch, dev)
+    sharded = check_adam_sharded(torch, dev)
     rec = dict(name="fused_adam", source=f"{PKG}/csrc/fused_adam.cu",
                replaces="speech_tranformer_pytorch_tpu/ops/fused_adam.py:46",
                max_abs_err=max([large["max_abs_err"]] + [
+                   r["max_abs_err"] for r in sharded.values()] + [
                    r[w]["max_abs_err"] for r in errs.values() for w in r]),
                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms,
                library_note="torch.optim.Adam(fused=True) on the same f32 tree; "
                             "it keeps f32 moments (28 B a parameter, not 20)",
-               params=n, leaves=len(shapes), large=large)
+               params=n, leaves=len(shapes), large=large, sharded=sharded)
     emit({"check": rec})
     return [rec, master_rec]
+
+
+# The classic kernel on parallel_path's trees: the `sharded` preset's whole
+# tree (1,021,205,888 parameters, 4 GB of f32 a tensor: the one-card run)
+# and model rank 0's shards under TP 4 (the four-card run), at the
+# preset's bf16 moments with the clip active, under check_adam's
+# tolerances and second-call bit check; each timed beside its plain version
+# and torch.optim.Adam(fused=True). Returns {"tp1": ..., "tp4": ...}.
+SHARDED_PARAMS = 1_021_205_888
+
+
+def check_adam_sharded(torch, dev):
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.kernels import fused_adam as fa
+    from speech_tranformer_pytorch_tpu_torch.models import SpeechTransformer
+    from speech_tranformer_pytorch_tpu_torch.parallel.sharding import shard_params
+    from speech_tranformer_pytorch_tpu_torch.train import make_fused_opt
+
+    cfg = get_config("sharded")
+    with torch.device("meta"):
+        whole = dict(SpeechTransformer(cfg.model).named_parameters())
+    opt = make_fused_opt(cfg)
+    hyper = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps, weight_decay=opt.weight_decay)
+    mdt = getattr(torch, cfg.train.moment_dtype)
+    out = {}
+    for tp in (1, 4):
+        shapes = [v.shape for v in shard_params(whole, tp, 0).values()]
+        n = sum(math.prod(s_) for s_ in shapes)
+        if tp == 1 and n != SHARDED_PARAMS:
+            raise AssertionError(f"sharded has {n} parameters, expected {SHARDED_PARAMS:,}")
+        g = torch.Generator(device=dev).manual_seed(7)
+        rnd = lambda s_, std: torch.randn(s_, device=dev, generator=g) * std
+        params = [rnd(s_, 0.02) for s_ in shapes]
+        grads = [rnd(s_, 1e-2) for s_ in shapes]
+        mu0 = [rnd(s_, 1e-3) for s_ in shapes]
+        nu0 = [rnd(s_, 1e-2).square() for s_ in shapes]
+        sc = opt.scalars(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))),
+                         torch.tensor(5, dtype=torch.int32, device=dev))
+        if not bool(sc[0] < 1.0):
+            raise AssertionError(f"clip scale {float(sc[0])}: the clip should be active")
+        errs, p_k, mu_k, nu_k = _classic_adam_case(
+            torch, fa, f"fused_adam_sharded[tp={tp}]", params, grads, mu0, nu0, mdt, sc,
+            hyper)
+        del mu0, nu0
+        lib_params = [torch.nn.Parameter(x) for x in params]
+        for p_, g_ in zip(lib_params, grads):
+            p_.grad = g_
+        lib = torch.optim.Adam(lib_params, lr=1e-4, betas=(opt.b1, opt.b2), eps=opt.eps,
+                               fused=True)
+        rec = dict(ms=device_ms(torch, lambda: fa.fused_adam_cuda(
+                       p_k, grads, mu_k, nu_k, sc, **hyper)),
+                   plain_ms=device_ms(torch, lambda: fa.adam_update_reference(
+                       p_k, grads, mu_k, nu_k, sc, **hyper), reps=3, rounds=3),
+                   library_ms=device_ms(torch, lib.step, reps=5, rounds=3),
+                   max_abs_err=max(r["max_abs_err"] for r in errs.values()),
+                   params=n, leaves=len(shapes))
+        rec["bound_ms"], rec["bound_by"] = bound(20 * n, 16 * n)
+        emit({"check": {"name": f"fused_adam_timing[sharded,tp={tp}]", **rec}})
+        out[f"tp{tp}"] = rec
+        del params, grads, p_k, mu_k, nu_k, lib, lib_params
+        torch.cuda.empty_cache()
+    return out
 
 
 # The master-weights variant of B-9 at the `large` tree's leaf mix: bf16
@@ -1014,15 +1111,16 @@ def check_int8_ffn(torch, dev):
     return rec
 
 
-def step_launches(cfg, master: bool):
+def step_launches(cfg, master: bool, ring: int = 1):
     """Exact kernel launches of one train step: one fbank; per attention
     layer (encoder self, decoder self and cross) a flash forward, run again
-    in the backward's recompute under remat, one dK/dV and one dQ; one Adam
-    launch, of the master variant with master weights."""
+    in the backward's recompute under remat, one dK/dV and one dQ (an
+    encoder layer on a ring of ``ring`` ranks: one of each per key block);
+    one Adam launch, of the master variant with master weights."""
     from speech_tranformer_pytorch_tpu_torch.kernels import interface
 
     m = cfg.model
-    layers = m.num_encoder_layers + 2 * m.num_decoder_layers
+    layers = m.num_encoder_layers * ring + 2 * m.num_decoder_layers
     want = {k: 0 for k in interface.launch_counts()}
     want.update(stft_mel=1, flash_fwd=layers * (2 if m.remat else 1),
                 flash_bwd_dkv=layers, flash_bwd_dq=layers)
@@ -1090,6 +1188,17 @@ def _large_audio(torch):
     cfg = get_config("large")
     return smoke_audio_batch(cfg, cfg.train.batch_size, device=torch.device("cpu"),
                              seconds=LARGE_SECONDS, tokens=LARGE_TOKENS)
+
+
+@functools.lru_cache(maxsize=1)
+def _sharded_audio(torch):
+    """``parallel_path``'s `sharded` train batch of one data rank, on the
+    CPU."""
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.profile_train import smoke_audio_batch
+
+    return smoke_audio_batch(get_config("sharded"), PARALLEL_UTTS, device=torch.device("cpu"),
+                             seconds=PARALLEL_SECONDS, tokens=PARALLEL_TOKENS)
 
 
 def _checked_steps(torch, step, state, batch, n, want, tag):
@@ -1481,9 +1590,10 @@ def overfit_anchor(torch, dev):
         raise AssertionError(f"decoded {hyps}, trained on {ds.transcripts}")
 
 
-def expected_serve_launches(cfg, steps: int, int8: bool, beam: int):
+def expected_serve_launches(cfg, steps: int, int8: bool, beam: int, ring: int = 1):
     """Exact kernel launches of one served batch of ``steps`` decode steps
-    (beam search, or greedy decoding at ``beam == 1``)."""
+    (beam search, or greedy decoding at ``beam == 1``); an encoder layer on
+    a ring of ``ring`` ranks runs one flash forward per key block."""
     from speech_tranformer_pytorch_tpu_torch.kernels import interface
 
     m = cfg.model
@@ -1491,7 +1601,7 @@ def expected_serve_launches(cfg, steps: int, int8: bool, beam: int):
     want = {k: 0 for k in interface.launch_counts()}
     want.update({"stft_mel": 1, "beam_prune": steps if beam > 1 else 0,
                  "lineage_attention": m.num_decoder_layers * steps,
-                 "flash_fwd": m.num_encoder_layers})
+                 "flash_fwd": m.num_encoder_layers * ring})
     if int8:   # + the cross K and V projections of init_cache
         want["int8_matmul"] = m.num_decoder_layers * (layer_step * steps + 2)
         want["int8_ffn"] = m.num_decoder_layers * steps
@@ -1702,7 +1812,7 @@ def _count_dev_eval(tr, total):
 
 
 def _trainer_run(torch, dev, cfg, work, paths, max_steps, total, resume=False,
-                 save=True, dev_manifest=None):
+                 save=True, dev_manifest=None, mesh="auto"):
     """A ``Trainer`` run to ``max_steps`` whose step function checks each
     step's exact launches (adding them to ``total``); returns the trainer
     and its steps per second from the first step's start to the last step's
@@ -1713,7 +1823,7 @@ def _trainer_run(torch, dev, cfg, work, paths, max_steps, total, resume=False,
     from speech_tranformer_pytorch_tpu_torch.runner import Trainer
 
     tr = Trainer(cfg, work_dir=work, train_manifest=paths["train"],
-                 dev_manifest=dev_manifest, resume=resume, device=dev)
+                 dev_manifest=dev_manifest, resume=resume, device=dev, mesh=mesh)
     if dev_manifest:
         _count_dev_eval(tr, total)
     inner, clock = tr.step_fn, {}
@@ -2032,11 +2142,363 @@ def drive_recipe(torch, dev):
     return total
 
 
+# Ring attention's per-block route: FlashAttentionStats, the B-4 forward
+# with its lse and the B-5/B-6 backward with di − dlse, merged by logaddexp
+# (``parallel/ring_attention.flash_step``), at the ``sharded`` encoder
+# shape: B 8, H 16, D 128, T' 748 in 4 key blocks of 187 (the whole of a
+# 4-rank ring's work on one card: each rank takes a quarter of the query
+# rows). Row 1 (length 300) keeps no key in blocks 2 and 3, so a whole
+# empty block goes through the route with a nonzero lse cotangent. Held
+# against the same route over the plain versions at check_flash's
+# tolerances, bit-identical on a second call, and against one
+# whole-sequence flash call: at the ring's tolerance (2e-4, JAX's ring
+# against full attention) in float32 and at the bf16 flash tolerance in
+# bf16 (each block's o is rounded to bf16 before the merge).
+RING_SHAPE = (8, 16, 748, 128, 4)        # batch, heads, T', head_dim, ring size
+RING_LENS = (748, 300, 700, 512, 655, 600, 433, 748)
+RING_TOL = (2e-4, 2e-4)
+
+
+def check_ring_blocks(torch, dev):
+    from speech_tranformer_pytorch_tpu_torch.kernels import flash_attention as fa
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.parallel.ring_attention import (
+        LSE_INIT, flash_step)
+
+    b, h, t, d, n = RING_SHAPE
+    blk = t // n
+    lens = torch.tensor(RING_LENS, dtype=torch.int32, device=dev)
+    block_lens = [torch.clamp(lens - j * blk, 0, blk) for j in range(n)]
+    if int(block_lens[2][1]) or int(block_lens[3][1]):
+        raise AssertionError("row 1 should keep no key in blocks 2 and 3")
+    kernel = lambda q, k, v, l: fa.FlashAttentionStats.apply(q, k, v, l, False)
+    plain = lambda q, k, v, l: fa.flash_fwd_reference(q, k, v, l, causal=False)
+
+    def route(stats, q, k, v):
+        carry = (torch.zeros((b, h, t, d), dtype=torch.float32, device=dev),
+                 torch.full((b, h, t), LSE_INIT, device=dev))
+        for j in range(n):
+            sl = slice(j * blk, (j + 1) * blk)
+            carry = flash_step(q, k[:, sl], v[:, sl], block_lens[j], carry, stats)
+        return carry[0].transpose(1, 2).to(q.dtype)
+
+    def fwd_bwd(fn, q, k, v, do):
+        o = fn(q, k, v)
+        return [o.detach()] + list(torch.autograd.grad(o, (q, k, v), do))
+
+    whole = lambda q, k, v: interface.flash_attention(q, k, v, kv_lengths=lens,
+                                                      causal=False)
+    errs, timed = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype)[6:]
+        (fa_tol, fr_tol), (ga_tol, gr_tol) = FLASH_TOL[dname]
+        g = torch.Generator(device=dev).manual_seed(17)
+        q, k, v, do = (torch.randn(b, t, h, d, device=dev, generator=g).to(dtype)
+                       for _ in range(4))
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        got = fwd_bwd(lambda *a: route(kernel, *a), q, k, v, do)
+        want = fwd_bwd(lambda *a: route(plain, *a), q, k, v, do)
+        full = fwd_bwd(whole, q, k, v, do)
+        torch.cuda.synchronize()
+        tag = f"ring_blocks[{dname}]"
+        e = {}
+        for i, name in enumerate(("o", "dq", "dk", "dv")):
+            if not bool(torch.isfinite(got[i]).all()):
+                raise AssertionError(f"{tag}.{name}: non-finite")
+            scale = float(want[i].float().abs().max()) or 1.0
+            a_tol, r_tol = (fa_tol, fr_tol) if name == "o" else (ga_tol, gr_tol)
+            e[name] = check_close(f"{tag}.{name}", got[i], want[i],
+                                  a_tol * (scale if dname == "bfloat16" or name != "o"
+                                           else 1.0), r_tol)
+            w_a, w_r = RING_TOL if dname == "float32" else (a_tol, r_tol)
+            e[f"{name}_vs_whole"] = check_close(f"{tag}.{name} vs whole", got[i], full[i],
+                                                w_a * scale, w_r)
+        again = fwd_bwd(lambda *a: route(kernel, *a), q, k, v, do)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{tag}: a second call gave other bits")
+        e["bit_identical_on_second_call"] = True
+        errs[dname] = e
+        emit({"check": {"name": tag, "max_abs_err": e}})
+        if dtype == torch.bfloat16:
+            timed = dict(q=q, k=k, v=v, do=do, err=e)
+
+    # Each kernel's time on the route: its n block calls, bf16, with the
+    # inputs the route gives it (dlse from the merge folded into di).
+    q, k, v, do = (x.detach() for x in (timed["q"], timed["k"], timed["v"], timed["do"]))
+    qt, dot = q.transpose(1, 2), do.transpose(1, 2)
+    blocks = []
+    for j in range(n):
+        sl = slice(j * blk, (j + 1) * blk)
+        kt, vt = k[:, sl].transpose(1, 2), v[:, sl].transpose(1, 2)
+        o_b, lse_b = fa.flash_fwd_cuda(qt, kt, vt, block_lens[j], causal=False)
+        dlse = torch.randn(lse_b.shape, device=dev, generator=g)
+        di = (o_b.float() * dot.float()).sum(-1) - dlse
+        blocks.append((kt, vt, block_lens[j], lse_b, di))
+    esz = q.element_size()
+    io_q, io_k, stat = b * h * t * d * esz, b * h * blk * d * esz, b * h * t * 4
+
+    def over_blocks(fn, reps=20, rounds=5):
+        return device_ms(torch, lambda: [fn(*blk_) for blk_ in blocks], reps, rounds)
+
+    pairs = h * t * int(lens.sum())            # kept (query, key) pairs, all blocks
+    kinds = {
+        "flash_fwd": (lambda kt, vt, l, lse, di: fa.flash_fwd_cuda(qt, kt, vt, l, causal=False),
+                      lambda kt, vt, l, lse, di: fa.flash_fwd_reference(qt, kt, vt, l, causal=False),
+                      n * (io_q + 2 * io_k + io_q + stat), 4 * d * pairs),
+        "flash_bwd_dkv": (lambda kt, vt, l, lse, di: fa.flash_bwd_dkv_cuda(
+                              qt, kt, vt, dot, lse, di, l, causal=False),
+                          lambda kt, vt, l, lse, di: fa.flash_bwd_dkv_reference(
+                              qt, kt, vt, dot, lse, di, l, causal=False),
+                          n * (2 * io_q + 4 * io_k + 2 * stat), 8 * d * pairs),
+        "flash_bwd_dq": (lambda kt, vt, l, lse, di: fa.flash_bwd_dq_cuda(
+                             qt, kt, vt, dot, lse, di, l, causal=False),
+                         lambda kt, vt, l, lse, di: fa.flash_bwd_dq_reference(
+                             qt, kt, vt, dot, lse, di, l, causal=False),
+                         n * (3 * io_q + 2 * io_k + 2 * stat), 6 * d * pairs),
+    }
+    out = {}
+    for name, (kfn, pfn, nbytes, flops) in kinds.items():
+        bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOP_PER_S)
+        out[name] = {"ms": over_blocks(kfn), "plain_ms": over_blocks(pfn, 3, 3),
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                     "library_note": "no PyTorch call returns the lse a block merge needs",
+                     "blocks": n, "shape": [b, h, t, blk, d],
+                     "max_abs_err": max(v_ for k_, v_ in timed["err"].items()
+                                        if k_ in ("o", "dq", "dk", "dv"))}
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    routes = {
+        "ring_route_fwd_bwd_ms": device_ms(torch, lambda: fwd_bwd(
+            lambda *a: route(kernel, *a), qr, kr, vr, do), 5, 3),
+        "plain_route_fwd_bwd_ms": device_ms(torch, lambda: fwd_bwd(
+            lambda *a: route(plain, *a), qr, kr, vr, do), 2, 3),
+        "whole_flash_fwd_bwd_ms": device_ms(torch, lambda: fwd_bwd(whole, qr, kr, vr, do), 5, 3),
+    }
+    emit({"check": {"name": "ring_block_timing", "shape": [b, h, t, d, n],
+                    "lens": list(RING_LENS), **routes, **out}})
+    return out
+
+
+# The parallel path: one NCCL rank per card (``parallel.mesh.spawn_ranks``).
+# The ``sharded`` preset at full width and depth (d_model 2048, 16 heads,
+# d_ff 8192, 12+6 layers, remat, ring attention) on a (1, n) mesh trains 3
+# steps on 16 int16 utterances of 20-30 s per data rank (20-60 tokens) with
+# exact per-rank launches, its losses and grad norms held to the
+# single-device step's on the same card and batch (bit-equal on one rank,
+# 1e-3 relative over several); then sharded beam-5 and greedy decoding of 8 utterances of
+# 4-6 s (max_len 100) with exact launches a batch, tokens equal to the
+# single-device Recognizer's (on one rank in bf16; over several model
+# ranks, whose bf16 partial sums round in another order, in float32);
+# then ``base`` through ``Trainer(mesh=...)`` on a (n, 1) mesh of a WAV
+# manifest, 4 steps straight (dev evaluations of the FLAC manifest at
+# steps 2 and 4, exact launches a dev batch) and 2 + resumed to 4
+# (bit-identical), then ``decode_manifest(distributed=True)`` of the FLAC
+# manifest, the same scores on every rank. With one card every collective
+# is real NCCL on one rank and the ring has one block.
+PARALLEL_SECONDS, PARALLEL_TOKENS = (20.0, 30.0), (20, 60)
+PARALLEL_UTTS, PARALLEL_STEPS, PARALLEL_TRAINER_STEPS = 16, 3, 4
+FIELDS = ("audio", "sample_lens", "targets_in", "targets_out", "target_lens", "valid")
+
+
+def _parallel_sharded(torch, dev, counts, report):
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.data.pipeline import (
+        AudioBatch, make_audio_train_step)
+    from speech_tranformer_pytorch_tpu_torch.data.synthetic import make_utterances
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.models import SpeechTransformer
+    from speech_tranformer_pytorch_tpu_torch.parallel.mesh import make_mesh
+    from speech_tranformer_pytorch_tpu_torch.parallel.sharding import (
+        data_rows, make_sharded_audio_train_step)
+    from speech_tranformer_pytorch_tpu_torch.profile_decode import DECODE
+    from speech_tranformer_pytorch_tpu_torch.profile_train import smoke_audio_batch
+    from speech_tranformer_pytorch_tpu_torch.recognize import Recognizer
+    from speech_tranformer_pytorch_tpu_torch.train import create_train_state
+
+    import torch.distributed as dist
+
+    n = dist.get_world_size()
+    cfg = get_config("sharded", **{"mesh.model_axis": n})
+    mesh = make_mesh(cfg.mesh, device=dev)
+    t0 = time.perf_counter()
+    whole = SpeechTransformer(cfg.model).init_weights(
+        torch.Generator().manual_seed(0)).state_dict()
+    gbatch = smoke_audio_batch(cfg, PARALLEL_UTTS * mesh.dp, device="cpu",
+                               seconds=PARALLEL_SECONDS, tokens=PARALLEL_TOKENS)
+    local = AudioBatch(*(data_rows(getattr(gbatch, f), mesh) for f in FIELDS)).to(dev)
+    state = create_train_state(cfg, params=whole, mesh=mesh)
+    report["sharded_setup_s"] = time.perf_counter() - t0
+    report["parameters"] = sum(v.numel() for v in whole.values())
+    step = make_sharded_audio_train_step(cfg, mesh)
+    want = step_launches(cfg, master=False, ring=mesh.tp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    interface.reset_launch_counts()
+    state, walls, losses, m, norms = _checked_steps(
+        torch, step, state, local, PARALLEL_STEPS, want, "sharded train")
+    _add(counts, interface.launch_counts())
+    wall = statistics.median(walls[1:])
+    report["sharded_train"] = {
+        "mesh": mesh.shape, "utterances_per_data_rank": int(local.audio.shape[0]),
+        "steps": len(walls), "step_wall_s": walls, "step_wall_s_median": wall,
+        "audio_s_per_step": float(m["audio_seconds"]),
+        "audio_s_per_s": float(m["audio_seconds"]) / wall,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), "loss": losses,
+        "grad_norm": norms, "launches_per_step": want}
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"sharded train: non-finite loss {losses} or norm {norms}")
+    del state, step
+    torch.cuda.empty_cache()
+    if mesh.is_main:      # the single-device step on the same card and batch
+        single = create_train_state(cfg, device=dev, params=whole)
+        sstep, slosses, snorms = make_audio_train_step(cfg), [], []
+        gdev = gbatch.to(dev)
+        for _ in range(PARALLEL_STEPS):
+            single, sm = sstep(single, gdev)
+            slosses.append(float(sm["loss"]))
+            snorms.append(float(sm["grad_norm"]))
+        rel = [abs(a - b_) / abs(b_) for a, b_ in zip(losses + norms, slosses + snorms)]
+        report["sharded_train"].update(single_device_loss=slosses,
+                                       single_device_grad_norm=snorms,
+                                       loss_rel_diff=rel[:len(losses)],
+                                       grad_norm_rel_diff=rel[len(losses):])
+        # One rank runs the single-device program: the same bits. Over
+        # several model ranks the bf16 partial sums add in another order.
+        if (mesh.tp == 1 and (losses, norms) != (slosses, snorms)) or max(rel) > 1e-3:
+            raise AssertionError(f"sharded losses {losses}, grad norms {norms} vs "
+                                 f"single-device {slosses}, {snorms}")
+        del single, sstep, gdev
+        torch.cuda.empty_cache()
+
+    audio, lens = make_utterances(8, min_seconds=4.0, max_seconds=6.0, seed=5)
+    audio, lens = torch.from_numpy(audio), torch.from_numpy(lens)
+    rec = Recognizer(cfg, whole, mesh=mesh)
+    single_rec = Recognizer(cfg, whole, device=dev) if mesh.is_main else None
+    report["sharded_decode"] = {}
+    for beam in (DECODE["beam_size"], 1):
+        decode = dict(DECODE, beam_size=beam)
+        rec.decode_batch(audio, lens, **decode)            # the shape's first call
+        torch.cuda.synchronize()
+        interface.reset_launch_counts()
+        t0 = time.perf_counter()
+        hyps = rec.decode_batch(audio, lens, **decode)
+        torch.cuda.synchronize()
+        dwall = time.perf_counter() - t0
+        got = interface.launch_counts()
+        _add(counts, got)
+        want = expected_serve_launches(cfg, rec.last_steps, False, beam, ring=mesh.tp)
+        if rec.last_steps <= 0 or got != want:
+            raise AssertionError(f"sharded decode beam {beam}: launches {got}, "
+                                 f"expected {want}")
+        entry = {"wall_s": dwall, "decode_steps": rec.last_steps, "launches": got,
+                 "hyp_lens": [len(x) for x in hyps]}
+        if single_rec is not None:
+            shyps = single_rec.decode_batch(audio, lens, **decode)
+            entry["hyps_equal_single_device"] = sum(a == b_ for a, b_ in zip(hyps, shyps))
+            # One rank: the same kernels on the same inputs, so the same
+            # bits. Over several model ranks the bf16 partial sums round in
+            # another order, so ties may break otherwise: there the
+            # float32 decode below must match.
+            if mesh.tp == 1 and shyps != hyps:
+                raise AssertionError(f"sharded decode beam {beam}: tokens differ from "
+                                     "the single-device Recognizer's")
+        report["sharded_decode"][f"beam{beam}"] = entry
+    if mesh.tp > 1:
+        f32 = cfg.replace(model=cfg.model.replace(dtype="float32"))
+        rec = Recognizer(f32, whole, mesh=mesh)
+        single_rec = Recognizer(f32, whole, device=dev) if mesh.is_main else None
+        for beam in (DECODE["beam_size"], 1):
+            decode = dict(DECODE, beam_size=beam)
+            hyps = rec.decode_batch(audio, lens, **decode)
+            if single_rec is not None:
+                same = single_rec.decode_batch(audio, lens, **decode) == hyps
+                report["sharded_decode"][f"beam{beam}"]["float32_tokens_equal"] = same
+                if not same:
+                    raise AssertionError(f"float32 sharded decode beam {beam}: tokens "
+                                         "differ from the single-device Recognizer's")
+    del rec, single_rec, whole
+    torch.cuda.empty_cache()
+
+
+def _parallel_trainer(torch, dev, root, counts, report):
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.parallel.mesh import make_mesh
+    from speech_tranformer_pytorch_tpu_torch.recognize import load_recognizer
+
+    import torch.distributed as dist
+
+    cfg = get_config("base", **{"train.batch_size": 8, "train.num_epochs": 100,
+                                "train.log_every": 1, "train.checkpoint_every_steps": 100,
+                                "train.eval_every_steps": 2, "mesh.model_axis": 1})
+    mesh = make_mesh(cfg.mesh, device=dev)
+    if mesh.is_main:
+        os.makedirs(f"{root}/corpus")
+        _write_corpus(f"{root}/corpus", cfg.model.vocab_size)
+    dist.barrier()
+    paths = {s: f"{root}/corpus/{s}.jsonl" for s in ("train", "test")}
+    steps = PARALLEL_TRAINER_STEPS
+    total = {k: 0 for k in interface.launch_counts()}
+    interface.reset_launch_counts()
+    straight, sps = _trainer_run(torch, dev, cfg, f"{root}/a", paths, steps, total,
+                                 mesh=mesh, dev_manifest=paths["test"])
+    _trainer_run(torch, dev, cfg, f"{root}/b", paths, steps // 2, total, mesh=mesh)
+    _trainer_run(torch, dev, cfg, f"{root}/b", paths, steps, total, mesh=mesh, resume=True)
+    rec = load_recognizer(cfg, f"{root}/a/checkpoints", mesh=mesh)
+    before = interface.launch_counts()
+    scores = rec.decode_manifest(paths["test"], beam_size=5, max_len=100, batch_size=8,
+                                 distributed=True)
+    _add(total, _launch_delta(before, interface.launch_counts()))
+    _add(counts, total)
+    report["trainer"] = {"mesh": mesh.shape, "steps_per_s": sps, "scores": scores,
+                         "dev_decode_steps": straight.dev_decode_steps,
+                         "best_dev_step": straight.best_dev_step, "launches": total}
+    if mesh.is_main:
+        a, b_ = (torch.load(f"{root}/{w}/checkpoints/step_{steps}.pt", weights_only=True)
+                 for w in ("a", "b"))
+        same = all(torch.equal(v, b_[part][k]) for part in ("params", "mu", "nu")
+                   for k, v in a[part].items())
+        report["trainer"]["resume_bit_identical"] = same
+        if not same:
+            raise AssertionError("a resumed mesh Trainer differs from the straight run")
+
+
+def _parallel_rank(rank, root):
+    """One rank of ``parallel_path``: its report and its launches."""
+    import torch
+
+    dev = torch.device("cuda", rank)
+    counts, report = {}, {"rank": rank}
+    _parallel_sharded(torch, dev, counts, report)
+    _parallel_trainer(torch, dev, f"{root}/trainer", counts, report)
+    return {"report": report, "counts": counts}
+
+
+def parallel_path(torch, dev):
+    import tempfile
+
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.parallel.mesh import spawn_ranks
+
+    n = torch.cuda.device_count()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()            # this process's cached blocks, for the ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(_parallel_rank, n, tmp, device="cuda")
+    scores = [r["report"]["trainer"]["scores"] for r in ranks]
+    plain = lambda s: {k: v for k, v in s.items() if not k.startswith("rtf")}
+    if any(plain(s) != plain(scores[0]) for s in scores):
+        raise AssertionError(f"decode_manifest(distributed=True) scores differ: {scores}")
+    counts = {k: ranks[0]["counts"].get(k, 0) for k in interface.launch_counts()}
+    emit({"parallel_path": {"world": n, "ranks": [r["report"] for r in ranks],
+                            "launches_rank0": counts}})
+    return counts
+
+
 CHECKS = ("check_fbank", "check_beam_prune", "check_lineage", "check_flash",
-          "check_adam", "check_int8_matmul", "check_int8_ffn")
+          "check_ring_blocks", "check_adam", "check_int8_matmul", "check_int8_ffn")
 PHASES = CHECKS + ("main_path", "card_vs_cpu", "int8_path", "int8_card_vs_cpu",
                    "train_path", "large_train_path", "train_card_vs_cpu",
-                   "overfit_anchor", "manifest_path", "drive_recipe")
+                   "overfit_anchor", "manifest_path", "drive_recipe", "parallel_path")
 
 
 def main() -> int:
@@ -2068,15 +2530,19 @@ def main() -> int:
     _build.build(verbose=True)
     emit({"build_s": time.perf_counter() - t0})
 
-    recs = []
+    recs, ring = [], {}
     for name in CHECKS:
         if name in phases:
             t0 = time.perf_counter()
             out = globals()[name](torch, dev)
-            recs += out if isinstance(out, list) else [out]
+            if name == "check_ring_blocks":   # the flash kernels' ring route
+                ring = out
+            else:
+                recs += out if isinstance(out, list) else [out]
             emit({"phase_s": {name: time.perf_counter() - t0}})
     counts = {"serve": {}, "serve_int8": {}, "train": {}, "large": {}, "large_master": {},
-              "large_trainer": {}, "librispeech": {}, "manifest": {}, "recipe": {}}
+              "large_trainer": {}, "librispeech": {}, "manifest": {}, "recipe": {},
+              "parallel": {}}
     for path, int8 in (("serve", False), ("serve_int8", True)):
         name = "int8_path" if int8 else "main_path"
         if name in phases:
@@ -2096,7 +2562,8 @@ def main() -> int:
             t0 = time.perf_counter()
             globals()[name](torch, dev)
             emit({"phase_s": {name: time.perf_counter() - t0}})
-    for path, name in (("manifest", "manifest_path"), ("recipe", "drive_recipe")):
+    for path, name in (("manifest", "manifest_path"), ("recipe", "drive_recipe"),
+                       ("parallel", "parallel_path")):
         if name in phases:
             t0 = time.perf_counter()
             counts[path] = globals()[name](torch, dev)
@@ -2111,6 +2578,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if r["name"] in ring:
+            kernels[-1]["ring_route"] = ring[r["name"]]
     if len(phases) == len(PHASES) and any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel never ran on a main path: {kernels}")
     print(card, flush=True)

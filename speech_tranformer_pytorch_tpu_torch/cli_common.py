@@ -8,6 +8,8 @@ import argparse
 import ast
 import os
 
+import torch.distributed as dist
+
 from .config import ExperimentConfig, apply_overrides, get_config
 
 
@@ -24,6 +26,22 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda; 'cpu' runs "
                          "the plain PyTorch versions of the kernels)")
+
+
+def run_on_ranks(args, run):
+    """``run(args, device)``. Under a ``torchrun`` launch, with
+    ``--distributed`` or with ``--mesh on`` the process first joins the
+    process group (``parallel.mesh.init_distributed``: ``device`` becomes
+    this rank's card) and leaves it when ``run`` returns or raises."""
+    from .parallel.mesh import init_distributed, launched_world
+
+    joined = args.distributed or args.mesh == "on" or launched_world() > 1
+    if not joined:
+        return run(args, args.device)
+    try:
+        return run(args, init_distributed(args.device))
+    finally:
+        dist.destroy_process_group()
 
 
 def _parse_value(s: str):

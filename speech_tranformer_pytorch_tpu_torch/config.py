@@ -363,8 +363,10 @@ def librispeech_config() -> ExperimentConfig:
 
 
 def sharded_config() -> ExperimentConfig:
-    """d_model=2048 encoder with tensor-parallel ring attention (the port
-    has no parallel path yet; the preset is kept for config parity)."""
+    """d_model=2048 with tensor parallelism over 4 ranks and ring attention
+    in the encoder: the port trains and decodes it on a mesh
+    (``parallel/``); on fewer ranks ``mesh='auto'`` falls back to one
+    device with a warning."""
     return ExperimentConfig(
         name="sharded",
         features=FeatureConfig(output_dtype="bfloat16"),

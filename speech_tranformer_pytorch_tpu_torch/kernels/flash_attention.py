@@ -282,17 +282,49 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        q, k, v, o, lse, kv_lengths = ctx.saved_tensors
+        # di = rowsum(o·dO) in f32, as _flash_bwd_impl takes it in jnp.
+        dq, dk, dv = _flash_bwd(q, k, v, o, lse, kv_lengths, do, None, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def _flash_bwd(q, k, v, o, lse, kv_lengths, do, dlse, causal: bool):
+    """dq, dk, dv from the saved forward. An lse cotangent ``dlse`` adds
+    p·dlse to dS (∂lse/∂s = p), which folds into dS = p·(dP − di) as
+    di − dlse (JAX ``_flash_bwd_impl``, ``kernels/flash_attention.py:
+    390-396``): the dK/dV and dQ kernels run unchanged."""
+    from . import interface
+
+    do = do.to(q.dtype)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    di = (o.float() * do.float()).sum(-1)
+    if dlse is not None:
+        di = di - dlse.float()
+    dk, dv = interface.flash_bwd_dkv(q, k, v, do, lse, di, kv_lengths, causal=causal)
+    dq = interface.flash_bwd_dq(q, k, v, do, lse, di, kv_lengths, causal=causal)
+    return dq, dk, dv
+
+
+class FlashAttentionStats(torch.autograd.Function):
+    """``(o, lse)`` of [B, H, T, D] flash attention, differentiable in both
+    (the JAX ``flash_block_stats``, ``kernels/flash_attention.py:543-581``):
+    ring attention's per-block body, whose blocks merge by their lse.
+    ``apply(q, k, v, kv_lengths, causal)``. The forward is B-4; the
+    backward runs B-5 and B-6 with di − dlse. A block with no kept key
+    gives o = 0 and a finite lse (near ``MASK_VALUE``), and no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lengths, causal: bool):
         from . import interface
 
+        o, lse = interface.flash_fwd(q, k, v, kv_lengths, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lengths)
+        ctx.causal = causal
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
         q, k, v, o, lse, kv_lengths = ctx.saved_tensors
-        do = do.to(q.dtype)
-        if do.stride(-1) != 1:
-            do = do.contiguous()
-        # di = rowsum(o·dO) in f32, as _flash_bwd_impl takes it in jnp; an
-        # lse cotangent (ring attention) would enter here as di − dlse.
-        di = (o.float() * do.float()).sum(-1)
-        dk, dv = interface.flash_bwd_dkv(q, k, v, do, lse, di, kv_lengths,
-                                         causal=ctx.causal)
-        dq = interface.flash_bwd_dq(q, k, v, do, lse, di, kv_lengths,
-                                    causal=ctx.causal)
+        dq, dk, dv = _flash_bwd(q, k, v, o, lse, kv_lengths, do, dlse, ctx.causal)
         return dq, dk, dv, None, None

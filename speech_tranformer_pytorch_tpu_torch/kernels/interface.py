@@ -66,7 +66,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_lengths: Optional[torch.Tensor] = None,
                     dropout_rate: float = 0.0, deterministic: bool = True,
                     generator: Optional[torch.Generator] = None,
-                    remat: bool = False) -> torch.Tensor:
+                    remat: bool = False, dropout_shard=None) -> torch.Tensor:
     """[B, T, H, D] x [B, S, H, D] -> [B, T, H, D] attention with ragged key
     lengths (kernels/flash_attention.py): the autograd Function over the
     three kernels for CUDA tensors, the plain version with torch autograd
@@ -79,7 +79,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     routes it: no TPU flash kernel drops anything. That route masks as
     JAX's dot path does, with an additive bias of the key lengths, the
     causal order and, given ``q_lengths``, the query lengths; ``generator``
-    draws its dropout bits, and ``remat`` checkpoints it
+    draws its dropout bits (``dropout_shard``: the heads are a tensor-parallel
+    rank's, ``ops/dropout``'s ``shard``), and ``remat`` checkpoints it
     (``model.attention_remat``; the flash route already recomputes from
     the log-sum-exp, so there it changes nothing)."""
     if dropout_rate > 0.0 and not deterministic:
@@ -89,7 +90,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         bias = _attention_bias(q.shape[1], k.shape[1], kv_lengths, causal, q_lengths)
         core = lambda q_, k_, v_, *, generator: dot_product_attention(
             q_, k_, v_, bias, dropout_rate=dropout_rate, deterministic=False,
-            generator=generator)
+            generator=generator, dropout_shard=dropout_shard)
         if remat:
             return remat_call(core, q, k, v, generator=generator)
         return core(q, k, v, generator=generator)
@@ -111,6 +112,15 @@ def _attention_bias(t: int, s: int, kv_lengths: torch.Tensor, causal: bool,
         pos = torch.arange(max(t, s), device=kv_lengths.device)
         keep = keep & (pos[None, :s] <= pos[:t, None])[None, None]
     return masks.mask_to_bias(keep.expand(-1, 1, t, s))
+
+
+def flash_attention_stats(q, k, v, kv_lengths, *, causal: bool = False):
+    """Differentiable ``(o, lse)`` of [B, H, T, D] inputs, the ring's
+    per-block body: ``FlashAttentionStats`` over B-4/B-5/B-6 for CUDA
+    tensors, the plain forward with torch autograd for CPU tensors."""
+    if _on_cuda(q):
+        return flash.FlashAttentionStats.apply(q, k, v, kv_lengths, causal)
+    return flash.flash_fwd_reference(q, k, v, kv_lengths, causal=causal)
 
 
 def flash_fwd(q, k, v, kv_lengths, *, causal: bool):

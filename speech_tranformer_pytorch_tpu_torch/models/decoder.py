@@ -18,6 +18,14 @@ it through the lineage table (``kernels/interface.lineage_attention``).
 With ``model.remat`` each teacher-forced layer runs under
 ``ops/remat.remat_module`` while gradients are taken (JAX
 ``decoder.py:268-272``).
+
+With a ``mesh`` the layers are tensor-parallel (``models/modules.py``),
+the embedding holds d_model/tp columns, gathered over the model ranks
+after the lookup, and the tied output projection multiplies the rank's
+slice of d_model by its embedding columns and sums the partial logits
+over the model ranks; an untied one gives vocabulary shards, which are
+gathered. The loss and the beam prune then see whole [.., V] logits, as
+in JAX's GSPMD program, and the caches hold the rank's heads.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from ..kernels import interface
 from ..ops import masks as mask_ops
 from ..ops.dropout import dropout
 from ..ops.remat import remat_module
+from ..parallel.tp import (column_linear, copy_to_model, gather_from_model,
+                           local_slice, reduce_from_model)
 from .modules import (FeedForward, Int8Embedding, Int8Linear, LayerNorm,
                       MultiHeadAttention, PositionalEncoding)
 
@@ -40,18 +50,18 @@ Cache = Dict[str, Dict[str, torch.Tensor]]
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.normalize_before = cfg.normalize_before
         self.dropout_rate = cfg.dropout_rate
         self.self_attn = MultiHeadAttention(cfg.d_model, cfg.num_heads,
                                             fused_qkv=cfg.fused_qkv,
                                             dropout_rate=cfg.attention_dropout_rate,
-                                            remat=cfg.attention_remat)
+                                            remat=cfg.attention_remat, mesh=mesh)
         self.cross_attn = MultiHeadAttention(cfg.d_model, cfg.num_heads,
                                              dropout_rate=cfg.attention_dropout_rate,
-                                             remat=cfg.attention_remat)
-        self.ffn = FeedForward(cfg.d_model, cfg.d_ff, cfg.dropout_rate)
+                                             remat=cfg.attention_remat, mesh=mesh)
+        self.ffn = FeedForward(cfg.d_model, cfg.d_ff, cfg.dropout_rate, mesh)
         self.ln1 = LayerNorm(cfg.d_model)
         self.ln2 = LayerNorm(cfg.d_model)
         self.ln3 = LayerNorm(cfg.d_model)
@@ -115,7 +125,7 @@ class DecoderLayer(nn.Module):
             out = interface.lineage_attention(
                 q_new, cache["self_k"], cache["self_v"], lineage, index,
                 beam_width)
-            return self.self_attn.out(out.flatten(-2))
+            return self.self_attn.project_out(out)
 
         def cross_attend(h):
             # Fold the K beams into query rows: the cross cache is
@@ -139,17 +149,19 @@ class DecoderLayer(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
+        self.mesh = mesh
+        tp = 1 if mesh is None else mesh.tp
         self.d_model = cfg.d_model
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model // tp)
         self.pos_enc = PositionalEncoding(cfg.d_model, cfg.max_target_positions,
                                           cfg.dropout_rate)
-        self.layers = nn.ModuleList(DecoderLayer(cfg)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, mesh)
                                     for _ in range(cfg.num_decoder_layers))
         self.final_norm = LayerNorm(cfg.d_model)
         self.out_proj = (None if cfg.share_embedding else
-                         nn.Linear(cfg.d_model, cfg.vocab_size, bias=False))
+                         nn.Linear(cfg.d_model, cfg.vocab_size // tp, bias=False))
         self.remat = cfg.remat
 
     @property
@@ -189,14 +201,17 @@ class Decoder(nn.Module):
         """float32 logits: compute-dtype operands, f32 accumulation and
         result (products of bf16 values are exact in f32). ``table_f32`` is
         the tied embedding already cast to f32, as ``init_cache`` keeps it."""
+        mesh = self.mesh
         if self.out_proj is None:
             if table_f32 is None:
                 table_f32 = self._table().float()
-            return torch.matmul(x.float(), table_f32.t())
-        return self.out_proj(x).float()
+            if mesh is not None:      # this rank's d_model columns
+                x = local_slice(copy_to_model(x, mesh), mesh)
+            return reduce_from_model(torch.matmul(x.float(), table_f32.t()), mesh)
+        return gather_from_model(column_linear(self.out_proj, x, mesh), mesh).float()
 
     def _embed_scaled(self, tokens: torch.Tensor) -> torch.Tensor:
-        emb = self.embed(tokens)
+        emb = gather_from_model(self.embed(tokens), self.mesh)
         scale = torch.tensor(self.d_model ** 0.5, dtype=emb.dtype, device=emb.device)
         return emb * scale
 

@@ -9,7 +9,11 @@ With ``model.remat`` each layer runs under ``ops/remat.remat_module`` while
 gradients are taken (JAX ``encoder.py:84-88, 138-141``): its activations
 are recomputed in the backward, with the forward's dropout bits. The layers
 are always built one by one; ``model.scan_layers`` only tells
-``convert.py`` how a JAX tree stacks them."""
+``convert.py`` how a JAX tree stacks them. With a ``mesh`` the layers are
+tensor-parallel, and ``model.attention_impl='ring'`` sends self-attention
+through ring attention over the model axis (JAX ``encoder.py:44-55``);
+without one the ring's function is computed by the ordinary flash route,
+as JAX's ``train.build_model`` substitutes it."""
 
 from __future__ import annotations
 
@@ -27,15 +31,15 @@ from .modules import (Conv2dSubsampling, FeedForward, LayerNorm,
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.normalize_before = cfg.normalize_before
         self.dropout_rate = cfg.dropout_rate
-        self.self_attn = MultiHeadAttention(cfg.d_model, cfg.num_heads,
-                                            fused_qkv=cfg.fused_qkv,
-                                            dropout_rate=cfg.attention_dropout_rate,
-                                            remat=cfg.attention_remat)
-        self.ffn = FeedForward(cfg.d_model, cfg.d_ff, cfg.dropout_rate)
+        self.self_attn = MultiHeadAttention(
+            cfg.d_model, cfg.num_heads, fused_qkv=cfg.fused_qkv,
+            dropout_rate=cfg.attention_dropout_rate, remat=cfg.attention_remat,
+            mesh=mesh, ring=mesh is not None and cfg.attention_impl == "ring")
+        self.ffn = FeedForward(cfg.d_model, cfg.d_ff, cfg.dropout_rate, mesh)
         self.ln1 = LayerNorm(cfg.d_model)
         self.ln2 = LayerNorm(cfg.d_model)
 
@@ -55,13 +59,13 @@ class EncoderLayer(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.subsample = Conv2dSubsampling(cfg.input_dim, cfg.d_model,
                                            cfg.subsample_channels)
         self.pos_enc = PositionalEncoding(cfg.d_model, cfg.max_source_positions,
                                           cfg.dropout_rate)
-        self.layers = nn.ModuleList(EncoderLayer(cfg)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, mesh)
                                     for _ in range(cfg.num_encoder_layers))
         self.final_norm = LayerNorm(cfg.d_model)
         self.remat = cfg.remat

@@ -12,6 +12,16 @@ boundaries: activations are [B, T, d], attention heads [B, T, H, D], the
 cross-attention cache head-major [B, H, S, D]. With attention dropout
 active, ``interface.flash_attention`` sends attention to
 ``dot_product_attention`` instead, as JAX routes it.
+
+Given a ``parallel.mesh.Mesh``, attention and the feed-forward are
+Megatron tensor-parallel over its ``model`` axis (``parallel/tp.py``):
+each rank holds H/tp heads and d_ff/tp hidden columns, takes the
+replicated input through column-parallel projections and sums the
+row-parallel output projections' partial results over the model ranks
+before the replicated bias. With ``ring`` (``model.attention_impl='ring'``
+under a mesh) encoder self-attention runs ring attention over the model
+axis (``parallel/ring_attention.py``). Without a mesh every module is the
+single-device one.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from torch.nn import functional as F
 
 from ..kernels import interface
 from ..ops.dropout import dropout, dropout_quantized
+from ..parallel.tp import column_linear, dropout_shard, row_linear
 
 
 def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
@@ -97,12 +108,14 @@ class Conv2dSubsampling(nn.Module):
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor], *, dropout_rate: float = 0.0,
                           deterministic: bool = True,
-                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                          generator: Optional[torch.Generator] = None,
+                          dropout_shard=None) -> torch.Tensor:
     """[B, T, H, D] x [B, S, H, D] -> [B, T, H, D]: the JAX package's jnp
     attention (``models/modules.py:383-412``). Scores in f32 over
     1/sqrt(D), plus the additive ``bias`` (broadcastable to [B, H, T, S]),
     an f32 softmax, u8 dropout of the weights (``dropout_quantized``) when
-    training, a cast to v's dtype, then the product with V.
+    training, a cast to v's dtype, then the product with V. ``dropout_shard``:
+    the heads are a tensor-parallel rank's (``ops/dropout``'s ``shard``).
 
     JAX's ``bf16_weights`` route (its bf16-residual backward) is taken only
     when no dropout is active; the port sends every such call to the flash
@@ -113,7 +126,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores + bias.float()
     weights = torch.softmax(scores, dim=-1)
     if not deterministic and dropout_rate > 0.0:
-        weights = dropout_quantized(weights, dropout_rate, generator)
+        weights = dropout_quantized(weights, dropout_rate, generator, dropout_shard)
     return torch.einsum("bhts,bshd->bthd", weights.to(v.dtype), v)
 
 
@@ -122,42 +135,63 @@ class MultiHeadAttention(nn.Module):
     (self-attention only) projects q, k and v with one [d, 3·d] matmul.
     ``remat`` (``model.attention_remat``) checkpoints the dot core that
     attention dropout routes to; on the flash route it changes nothing,
-    as the flash backward already recomputes from the log-sum-exp."""
+    as the flash backward already recomputes from the log-sum-exp.
+
+    With a ``mesh`` the module holds its model rank's H/tp heads
+    (``num_heads`` counts them): q/k/v weights (and the fused ``qkv``'s
+    weight and bias) by head, the output projection by input head; q/k/v
+    biases stay whole, as the JAX rules keep them. ``ring`` sends
+    self-attention through ring attention over the model axis."""
 
     def __init__(self, d_model: int, num_heads: int, fused_qkv: bool = False,
-                 dropout_rate: float = 0.0, remat: bool = False):
+                 dropout_rate: float = 0.0, remat: bool = False, mesh=None,
+                 ring: bool = False):
         super().__init__()
-        self.num_heads = num_heads
+        self.mesh = mesh
+        self.ring = ring
+        self.num_heads = num_heads // (1 if mesh is None else mesh.tp)
         self.dropout_rate = dropout_rate
         self.remat = remat
         self.head_dim = d_model // num_heads
         self.fused_qkv = fused_qkv
+        width = self.num_heads * self.head_dim
         if fused_qkv:
-            self.qkv = nn.Linear(d_model, 3 * d_model)
+            self.qkv = nn.Linear(d_model, 3 * width)
         else:
-            self.q = nn.Linear(d_model, d_model)
-            self.k = nn.Linear(d_model, d_model)
-            self.v = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+            self.q = nn.Linear(d_model, width)
+            self.k = nn.Linear(d_model, width)
+            self.v = nn.Linear(d_model, width)
+            if mesh is not None:       # whole biases; each rank adds its heads'
+                for lin in (self.q, self.k, self.v):
+                    lin.bias = nn.Parameter(torch.zeros(d_model))
+        self.out = nn.Linear(width, d_model)
 
     def _heads(self, y: torch.Tensor) -> torch.Tensor:
         return y.unflatten(-1, (self.num_heads, self.head_dim))
 
+    def _proj(self, linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        return self._heads(column_linear(linear, x, self.mesh))
+
     def project_qkv(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """q, k, v [..., H, D] of a single input."""
         if self.fused_qkv:
-            qkv = self.qkv(x).unflatten(-1, (3, self.num_heads, self.head_dim))
-            return qkv.unbind(-3)
-        return self._heads(self.q(x)), self._heads(self.k(x)), self._heads(self.v(x))
+            qkv = column_linear(self.qkv, x, self.mesh, bias_replicated=False)
+            return qkv.unflatten(-1, (3, self.num_heads, self.head_dim)).unbind(-3)
+        return self._proj(self.q, x), self._proj(self.k, x), self._proj(self.v, x)
 
     def project_q(self, x: torch.Tensor) -> torch.Tensor:
-        return self.project_qkv(x)[0] if self.fused_qkv else self._heads(self.q(x))
+        return self.project_qkv(x)[0] if self.fused_qkv else self._proj(self.q, x)
 
     def project_kv(self, kv_in: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.fused_qkv:
             _, k, v = self.project_qkv(kv_in)
             return k, v
-        return self._heads(self.k(kv_in)), self._heads(self.v(kv_in))
+        return self._proj(self.k, kv_in), self._proj(self.v, kv_in)
+
+    def project_out(self, y: torch.Tensor) -> torch.Tensor:
+        """[..., H, D] -> [..., d_model]: the output projection, summed over
+        the model ranks."""
+        return row_linear(self.out, y.flatten(-2), self.mesh)
 
     def attend(self, q_in, k, v, *, kv_lengths: torch.Tensor, causal: bool = False,
                deterministic: bool = True, q: Optional[torch.Tensor] = None,
@@ -170,12 +204,20 @@ class MultiHeadAttention(nn.Module):
         attention-dropout bits."""
         if q is None:
             q = self.project_q(q_in)
-        out = interface.flash_attention(q, k, v, kv_lengths=kv_lengths, causal=causal,
-                                        q_lengths=q_lengths,
-                                        dropout_rate=self.dropout_rate,
-                                        deterministic=deterministic,
-                                        generator=generator, remat=self.remat)
-        return self.out(out.flatten(-2))
+        if self.ring:
+            from ..parallel.ring_attention import ring_self_attention
+
+            if causal:
+                raise ValueError("ring attention is non-causal self-attention only")
+            out = ring_self_attention(q, k, v, kv_lengths, self.mesh)
+        else:
+            out = interface.flash_attention(q, k, v, kv_lengths=kv_lengths,
+                                            causal=causal, q_lengths=q_lengths,
+                                            dropout_rate=self.dropout_rate,
+                                            deterministic=deterministic,
+                                            generator=generator, remat=self.remat,
+                                            dropout_shard=dropout_shard(self.mesh, 1))
+        return self.project_out(out)
 
     def attend_bhsd(self, q_in: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -188,7 +230,7 @@ class MultiHeadAttention(nn.Module):
             scores = scores + bias.float()
         weights = torch.softmax(scores, dim=-1).to(v.dtype)
         out = torch.einsum("bhts,bhsd->bhtd", weights, v)
-        return self.out(out.transpose(1, 2).flatten(-2))
+        return self.project_out(out.transpose(1, 2))
 
     def forward(self, q_in, kv_in, *, kv_lengths: torch.Tensor, causal: bool = False,
                 deterministic: bool = True, q_lengths: Optional[torch.Tensor] = None,
@@ -264,12 +306,18 @@ class Int8Embedding(nn.Module):
 
 class FeedForward(nn.Module):
     """Linear → ReLU → dropout → Linear; with both layers int8
-    (``Int8Linear``), one fused ``interface.int8_ffn`` launch."""
+    (``Int8Linear``), one fused ``interface.int8_ffn`` launch. With a
+    ``mesh`` the rank holds d_ff/tp hidden columns (fc1 by rows, fc2 by
+    columns; fc1's bias whole, as the JAX rules keep it)."""
 
-    def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0):
+    def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0, mesh=None):
         super().__init__()
-        self.fc1 = nn.Linear(d_model, d_ff)
-        self.fc2 = nn.Linear(d_ff, d_model)
+        self.mesh = mesh
+        hidden = d_ff // (1 if mesh is None else mesh.tp)
+        self.fc1 = nn.Linear(d_model, hidden)
+        self.fc2 = nn.Linear(hidden, d_model)
+        if mesh is not None:
+            self.fc1.bias = nn.Parameter(torch.zeros(d_ff))
         self.dropout_rate = dropout_rate
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
@@ -277,9 +325,10 @@ class FeedForward(nn.Module):
         int8 = [isinstance(fc, Int8Linear) for fc in (self.fc1, self.fc2)]
         if any(int8):
             return self._int8(x, int8)
-        h = dropout(F.relu(self.fc1(x)), self.dropout_rate,
-                    deterministic=deterministic, generator=generator)
-        return self.fc2(h)
+        h = dropout(F.relu(column_linear(self.fc1, x, self.mesh)), self.dropout_rate,
+                    deterministic=deterministic, generator=generator,
+                    shard=dropout_shard(self.mesh, -1))
+        return row_linear(self.fc2, h, self.mesh)
 
     def _int8(self, x: torch.Tensor, int8) -> torch.Tensor:
         """The int8 branch (JAX ``modules.py:600-627``): serving only, so no

@@ -15,14 +15,29 @@ from .encoder import Encoder
 
 
 class SpeechTransformer(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None):
+        """``mesh`` (a ``parallel.mesh.Mesh``): the model rank's tensor-
+        parallel shards (``parallel/sharding.shard_params`` makes its
+        ``state_dict``), with ring attention for
+        ``attention_impl='ring'``."""
         super().__init__()
         if cfg.subsample_impl != "conv":
             raise ValueError(f"the port implements subsample_impl='conv', "
                              f"not {cfg.subsample_impl!r}")
+        if mesh is not None:
+            tp = mesh.tp
+            split = {"model.num_heads": cfg.num_heads, "model.d_ff": cfg.d_ff,
+                     "model.d_model": cfg.d_model}
+            if not cfg.share_embedding:
+                split["model.vocab_size"] = cfg.vocab_size
+            bad = [f"{k}={v}" for k, v in split.items() if v % tp]
+            if bad:
+                raise ValueError(f"tensor parallelism over {tp} ranks needs "
+                                 f"{', '.join(bad)} divisible by {tp}")
         self.cfg = cfg
-        self.encoder = Encoder(cfg)
-        self.decoder = Decoder(cfg)
+        self.mesh = mesh
+        self.encoder = Encoder(cfg, mesh)
+        self.decoder = Decoder(cfg, mesh)
 
     def forward(self, feats, frame_lens, targets_in, tgt_lens, *,
                 deterministic: bool = True,

@@ -17,10 +17,11 @@ from typing import Tuple
 import torch
 
 
-def label_smoothed_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *,
-                                 smoothing: float = 0.1, pad_id: int = 0
-                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (mean per-token loss, valid-token count), both f32 scalars."""
+def label_smoothed_ce_sums(logits: torch.Tensor, targets: torch.Tensor, *,
+                           smoothing: float = 0.1, pad_id: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the per-token losses over non-pad targets, their count), both
+    f32 scalars: the two sums a data-parallel step reduces over ranks."""
     vocab = logits.shape[-1]
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     true_lp = torch.gather(log_probs, -1, targets.long()[..., None])[..., 0]
@@ -32,13 +33,29 @@ def label_smoothed_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *,
     else:
         per_tok = -true_lp
     weights = (targets != pad_id).float()
-    token_count = torch.clamp(weights.sum(), min=1.0)
-    return (per_tok * weights).sum() / token_count, token_count
+    return (per_tok * weights).sum(), weights.sum()
+
+
+def label_smoothed_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *,
+                                 smoothing: float = 0.1, pad_id: int = 0
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (mean per-token loss, valid-token count), both f32 scalars."""
+    loss_sum, weights = label_smoothed_ce_sums(logits, targets, smoothing=smoothing,
+                                               pad_id=pad_id)
+    token_count = torch.clamp(weights, min=1.0)
+    return loss_sum / token_count, token_count
+
+
+def token_accuracy_sums(logits: torch.Tensor, targets: torch.Tensor, *,
+                        pad_id: int = 0) -> torch.Tensor:
+    """Count of non-pad target tokens predicted correctly (argmax), f32."""
+    weights = (targets != pad_id).float()
+    return ((logits.argmax(dim=-1) == targets.long()).float() * weights).sum()
 
 
 def token_accuracy(logits: torch.Tensor, targets: torch.Tensor, *,
                    pad_id: int = 0) -> torch.Tensor:
     """Fraction of non-pad target tokens predicted correctly (argmax)."""
     weights = (targets != pad_id).float()
-    correct = (logits.argmax(dim=-1) == targets.long()).float() * weights
-    return correct.sum() / torch.clamp(weights.sum(), min=1.0)
+    return token_accuracy_sums(logits, targets, pad_id=pad_id) / torch.clamp(
+        weights.sum(), min=1.0)

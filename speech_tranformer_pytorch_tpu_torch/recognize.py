@@ -2,15 +2,23 @@
 PCM -> fbank + CMVN -> encoder -> beam search (greedy at beam 1) -> best
 hypotheses with <eos> removed; ``decode_manifest`` decodes a manifest in
 length buckets and scores it by CER (and WER for a BPE vocabulary) and
-real-time factor; ``load_recognizer`` serves a checkpoint."""
+real-time factor; ``load_recognizer`` serves a checkpoint.
+
+With a ``parallel.mesh.Mesh`` the model holds the rank's tensor-parallel
+shards and a batch splits over ``data`` (``parallel/decode.py``);
+``decode_manifest(distributed=True)`` gives each data rank its stride of
+every globally planned batch and gathers hypotheses with their manifest
+rows, so every rank returns the same scores."""
 
 from __future__ import annotations
 
 import json
+import math
 import time
 from typing import Dict, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from .config import ExperimentConfig
 from .data.features import extract_features
@@ -23,10 +31,9 @@ from .models import SpeechTransformer
 from .models.modules import subsampled_lengths
 from .ops.metrics import cer, wer
 from .ops.quantize import decode_model, quantize_params
+from .parallel.decode import make_sharded_beam_decode, make_sharded_greedy_decode
+from .parallel.sharding import data_rows, gather_rows, shard_params
 from .utils.checkpoint import Checkpointer
-
-_NOT_PORTED = ("mesh and distributed decoding are not ported yet "
-               "(ROADMAP queue A item 6, parallelism)")
 
 
 class Recognizer:
@@ -43,15 +50,26 @@ class Recognizer:
         ``ops.quantize.decode_model``: encoder dequantized once, decoder
         dense layers on the int8 kernels. ``decode.int8_kv_cache``: int8
         cross K/V cache. ``tokenizer`` turns hypotheses into text for
-        ``decode_manifest``'s output file and WER."""
-        if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED)
+        ``decode_manifest``'s output file and WER.
+
+        ``mesh``: the model holds this rank's tensor-parallel shards of
+        ``params`` on ``mesh.device`` and batches split over ``data``. The
+        int8 options are single-device only, as in JAX."""
         self.cfg = cfg
         self.tokenizer = tokenizer
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         dt = getattr(torch, cfg.model.dtype)
         self.int8_kv = bool(cfg.decode.int8_kv_cache)
-        if cfg.decode.int8_weights:
+        if mesh is not None:
+            if cfg.decode.int8_weights or self.int8_kv:
+                raise ValueError("decode.int8_weights / decode.int8_kv_cache are "
+                                 "single-device serving only: disable them for "
+                                 "mesh or distributed decoding")
+            model = SpeechTransformer(cfg.model, mesh)
+            model.load_state_dict(shard_params(params, mesh.tp, mesh.model_index))
+            self.model = model.to(self.device, dt)
+        elif cfg.decode.int8_weights:
             qparams, scales = quantize_params(params, cfg.model, embedding_rows=True)
             self.model = decode_model(cfg.model, qparams, scales, dt).to(self.device)
         else:
@@ -64,10 +82,29 @@ class Recognizer:
     def decode_result(self, audio_int16, sample_lens, *, beam_size: int,
                       max_len: int, alpha: float) -> Union[BeamResult, GreedyResult]:
         """Decode a padded int16 batch [B, S]: beam search, or greedy search
-        when ``beam_size == 1`` (as the JAX ``Recognizer`` routes it)."""
+        when ``beam_size == 1`` (as the JAX ``Recognizer`` routes it). With
+        a mesh the batch is the global one: each data rank decodes its
+        rows and the result is gathered back in row order."""
+        if self.mesh is not None:
+            audio_int16, sample_lens = (data_rows(torch.as_tensor(x), self.mesh)
+                                        for x in (audio_int16, sample_lens))
+        return self._decode(audio_int16, sample_lens, beam_size=beam_size,
+                            max_len=max_len, alpha=alpha)
+
+    def _decode(self, audio_int16, sample_lens, *, beam_size: int, max_len: int,
+                alpha: float) -> Union[BeamResult, GreedyResult]:
+        """Decode the rows this process holds; with a mesh, through the
+        sharded builders (``parallel/decode.py``), which gather every data
+        rank's rows."""
         feats, frame_lens = extract_features(audio_int16, sample_lens,
                                              self.cfg.features, device=self.device)
-        if beam_size == 1:
+        if self.mesh is not None:
+            fn = (make_sharded_greedy_decode(self.model, self.mesh, max_len=max_len)
+                  if beam_size == 1 else
+                  make_sharded_beam_decode(self.model, self.mesh, beam_size=beam_size,
+                                           max_len=max_len, alpha=alpha))
+            result = fn(feats, frame_lens)
+        elif beam_size == 1:
             result = greedy_decode(self.model, feats, frame_lens, max_len=max_len,
                                    int8_kv=self.int8_kv, device=self.device)
         else:
@@ -104,9 +141,26 @@ class Recognizer:
         shape pays one-time costs (library handles and algorithm choices,
         allocator growth), as JAX's pays its compile; when every batch was
         a first call, the epoch runs again for ``rtf``. ``out_path`` gets
-        one JSON line an utterance."""
-        if distributed:
-            raise NotImplementedError(_NOT_PORTED)
+        one JSON line an utterance.
+
+        ``distributed=True`` (a mesh is needed): each data rank reads and
+        decodes its stride of every globally planned batch (``batch_size``
+        is per data rank), then the hypotheses and their manifest rows are
+        gathered over ``data``, so every rank scores the whole manifest
+        and returns the same scores; only rank 0 writes ``out_path``.
+        Without it a multi-rank launch raises, as JAX's does."""
+        mesh = self.mesh
+        if distributed and mesh is None:
+            raise ValueError("decode_manifest(distributed=True) needs a mesh: "
+                             "construct the Recognizer with mesh=... "
+                             "(recognize_cli --distributed builds one)")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if not distributed and world > 1:
+            raise RuntimeError(
+                f"decode_manifest without distributed=True under a {world}-rank "
+                "launch: every rank would decode the whole manifest; pass "
+                "distributed=True (recognize_cli --distributed)")
+        num_shards = mesh.dp if distributed else 1
         d = self.cfg.decode
         beam_size = beam_size if beam_size is not None else d.beam_size
         max_len = max_len if max_len is not None else d.max_decode_len
@@ -118,8 +172,16 @@ class Recognizer:
             target_len=min(self.cfg.data.max_target_len,
                            self.cfg.model.max_target_positions),
             shuffle=False, drop_remainder=False,
+            shard_index=mesh.data_index if distributed else 0, num_shards=num_shards,
             max_frames_per_batch=max_frames_per_batch,
             adaptive_target_len=self.cfg.data.adaptive_target_len)
+        if mesh is not None:
+            # Every global batch (per-rank rows × shards) must divide the
+            # data axis: round the per-rank bucket sizes up (JAX
+            # recognize.py:241-250); padded rows carry valid=False.
+            q = mesh.dp // math.gcd(mesh.dp, num_shards)
+            batcher.bucket_batch_sizes = [-(-b // q) * q
+                                          for b in batcher.bucket_batch_sizes]
 
         def batch_max_len(abatch) -> int:
             """Decode steps for the batch: ``max_len``, or with
@@ -132,20 +194,32 @@ class Recognizer:
             return max(4, min(max_len, int(d.max_len_ratio * enc_frames)))
 
         def decode(abatch, rows):
-            """The batch's hypotheses for its manifest rows (padding rows
-            dropped) and the decode wall time, device work included."""
+            """(manifest rows, their hypotheses) of the batch, padding rows
+            dropped (with ``distributed``, every data rank's, gathered with
+            their row ids), the decode wall time, device work included, and
+            the batch's step limit."""
             bml = batch_max_len(abatch)
             t0 = time.perf_counter()
-            hyps = self.decode_batch(abatch.audio, abatch.sample_lens,
-                                     beam_size=beam_size, max_len=bml, alpha=alpha)
-            return hyps[:len(rows)], time.perf_counter() - t0, bml
+            if not distributed:
+                hyps = self.decode_batch(abatch.audio, abatch.sample_lens,
+                                         beam_size=beam_size, max_len=bml, alpha=alpha)
+                return list(rows), hyps[:len(rows)], time.perf_counter() - t0, bml
+            result = self._decode(abatch.audio, abatch.sample_lens, beam_size=beam_size,
+                                  max_len=bml, alpha=alpha)
+            ids = torch.full((abatch.audio.shape[0],), -1, dtype=torch.int64)
+            ids[:len(rows)] = torch.tensor(rows, dtype=torch.int64)
+            ids = gather_rows(ids.to(self.device), mesh).cpu()
+            keep = torch.nonzero(ids >= 0)[:, 0].tolist()
+            hyps = self.hypotheses(result)
+            return ([int(ids[i]) for i in keep], [hyps[i] for i in keep],
+                    time.perf_counter() - t0, bml)
 
         sr = self.cfg.features.sample_rate
         refs, hyps, utt_ids, ref_rows = [], [], [], []
         audio_total = t_total = audio_steady = t_steady = 0.0
         seen = set()
         for abatch, rows in batcher.epoch(0, with_rows=True):
-            out, dt, bml = decode(abatch, rows)
+            rows, out, dt, bml = decode(abatch, rows)
             batch_audio = sum(ds.entries[i]["num_samples"] for i in rows) / sr
             t_total += dt
             audio_total += batch_audio
@@ -164,7 +238,7 @@ class Recognizer:
 
         if audio_steady == 0.0 and audio_total > 0.0:
             for abatch, rows in batcher.epoch(0, with_rows=True):
-                _, dt, _ = decode(abatch, rows)
+                rows, _, dt, _ = decode(abatch, rows)
                 t_steady += dt
                 audio_steady += sum(ds.entries[i]["num_samples"] for i in rows) / sr
 
@@ -180,7 +254,7 @@ class Recognizer:
         scores["audio_seconds"] = audio_total
         scores["utterances"] = float(len(hyps))
 
-        if out_path:
+        if out_path and (mesh is None or mesh.is_main):
             with open(out_path, "w", encoding="utf-8") as f:
                 for uid, h in zip(utt_ids, hyps):
                     text = self.tokenizer.decode(h) if self.tokenizer is not None else ""
@@ -191,10 +265,12 @@ class Recognizer:
 
 def load_recognizer(cfg: ExperimentConfig, checkpoint_dir: str, *,
                     vocab_path: Optional[str] = None,
-                    device: DeviceLike = None) -> Recognizer:
+                    device: DeviceLike = None, mesh=None) -> Recognizer:
     """A ``Recognizer`` on ``device`` (CUDA unless the caller asks for the
-    CPU) serving the latest checkpoint in ``checkpoint_dir``."""
-    dev = resolve_device(device)
+    CPU), or on ``mesh`` with this rank's shards, serving the latest
+    checkpoint in ``checkpoint_dir`` (a mesh run's checkpoint is whole and
+    loads either way)."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     _, restored = Checkpointer(checkpoint_dir).restore(device="cpu")
     tok = load_tokenizer(vocab_path) if vocab_path else None
-    return Recognizer(cfg, restored.params, tokenizer=tok, device=dev)
+    return Recognizer(cfg, restored.params, tokenizer=tok, device=dev, mesh=mesh)

@@ -5,6 +5,11 @@ one JSON line.
   python -m speech_tranformer_pytorch_tpu_torch.recognize_cli \
       --data-dir exp/data --work-dir exp/run1 --split test --beam 5 \
       --out exp/run1/hyps.jsonl [--device cpu]
+
+Over several cards, each rank decoding its share of every batch:
+
+  torchrun --nproc-per-node 4 -m speech_tranformer_pytorch_tpu_torch.recognize_cli \
+      --data-dir exp/data --work-dir exp/run1 --distributed
 """
 
 from __future__ import annotations
@@ -13,9 +18,8 @@ import argparse
 import json
 import os
 
-from .cli_common import add_common_args, resolve_config, saved_config
-
-_NOT_PORTED = "not ported yet (ROADMAP queue A item 6, parallelism)"
+from .cli_common import add_common_args, resolve_config, run_on_ranks, saved_config
+from .parallel.mesh import make_mesh, make_mesh_auto
 
 
 def main(argv=None):
@@ -40,16 +44,20 @@ def main(argv=None):
     ap.add_argument("--int8-kv", action="store_true",
                     help="int8 cross-K/V decode cache (decode.int8_kv_cache)")
     ap.add_argument("--mesh", choices=("auto", "on", "off"), default="auto",
-                    help="'on' (a device mesh) is not ported; 'auto' and 'off' "
-                         "decode on one device")
+                    help="'auto': sharded decoding over a ('data','model') mesh "
+                         "when mesh.model_axis > 1 and the ranks fit it (one "
+                         "device otherwise, with a warning); 'on' forces it; "
+                         "'off' decodes on one device")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host decoding: not ported")
+                    help="decode under a torchrun launch: each rank decodes its "
+                         "share of every batch, all ranks report the whole "
+                         "manifest's scores (--out written by rank 0; "
+                         "--batch-size is per data rank)")
     args = ap.parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(f"--distributed is {_NOT_PORTED}")
-    if args.mesh == "on":
-        raise NotImplementedError(f"--mesh on is {_NOT_PORTED}")
+    return run_on_ranks(args, _run)
 
+
+def _run(args, device):
     # The config train_cli saved is the base; --set applies on top.
     saved = os.path.join(args.work_dir, "config.json")
     cfg = (saved_config(saved, args.overrides) if os.path.exists(saved)
@@ -64,12 +72,17 @@ def main(argv=None):
     if args.checkpoint == "best" and not os.path.isdir(ckpt_dir):
         raise FileNotFoundError(f"{ckpt_dir} not found: the run had no dev evals, "
                                 "so no best model was kept (use --checkpoint latest)")
+    mesh = None
+    if args.distributed or args.mesh == "on":
+        mesh = make_mesh(cfg.mesh, device=device)
+    elif args.mesh == "auto" and cfg.mesh.model_axis > 1:
+        mesh = make_mesh_auto(cfg.mesh, device=device)
     from .recognize import load_recognizer
     rec = load_recognizer(cfg, ckpt_dir, vocab_path=cfg.data.vocab_path or None,
-                          device=args.device)
+                          device=device, mesh=mesh)
     scores = rec.decode_manifest(manifest, beam_size=args.beam, max_len=args.max_len,
                                  alpha=args.alpha, batch_size=args.batch_size,
-                                 out_path=args.out)
+                                 out_path=args.out, distributed=args.distributed)
     print(json.dumps(scores))
 
 

@@ -2,8 +2,14 @@
 over a bucketed manifest, logging, step checkpoints with bit-exact resume,
 dev loss with greedy dev CER, and best-model tracking in ``work_dir/best``.
 
-The single-process path only: a mesh and the grain pipeline raise (ROADMAP
-queue A). The hot loop never waits on the device per step: the step count
+With a mesh (``parallel.mesh.Mesh``, one process per card) each data rank
+reads its stride of every globally planned batch, the steps are the
+sharded ones of ``parallel/sharding.py``, dev CER runs the sharded greedy
+decode, every rank computes the same log records and rank 0 alone writes
+them and the checkpoints (whole trees, in the single-device format). The
+grain pipeline raises (ROADMAP queue A).
+
+The hot loop never waits on the device per step: the step count
 is a host ``int``, and the per-step metric tensors are read in one batch at
 each log boundary. A prefetch thread reads and pads the batches and
 queues their host-to-device copies, so the file reads and the host's
@@ -16,11 +22,14 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
+import sys
 import time
 import warnings
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from .config import ExperimentConfig
@@ -32,6 +41,9 @@ from .decoding import greedy_decode, tokens_to_lists
 from .device import DeviceLike, resolve_device
 from .ops.losses import label_smoothed_cross_entropy
 from .ops.metrics import cer
+from .parallel.mesh import Mesh, make_mesh_auto
+from .parallel.sharding import (make_sharded_audio_eval_step,
+                                make_sharded_audio_train_step)
 from .train import TrainState, cast_params, compute_cast_dtype, create_train_state
 from .utils.checkpoint import Checkpointer, CheckpointState
 from .utils.logging import MetricsLogger
@@ -58,23 +70,49 @@ def make_audio_eval_step(cfg: ExperimentConfig):
     return step
 
 
+def _resolve_mesh(cfg: ExperimentConfig, mesh, device: DeviceLike) -> Optional[Mesh]:
+    """The JAX ``Trainer``'s mesh argument: "auto" builds the mesh when the
+    launch has several ranks or ``mesh.model_axis`` > 1 (in a single-rank
+    launch that cannot fit the model axis, none, with a warning); a ``Mesh``
+    is used as it is; None trains on one device, refused under a
+    multi-rank launch."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if mesh == "auto":
+        if world > 1 or cfg.mesh.model_axis > 1:
+            return make_mesh_auto(cfg.mesh, device=device)
+        return None
+    if isinstance(mesh, Mesh):
+        return mesh
+    if mesh is None:
+        if world > 1:
+            raise ValueError(f"mesh=None under a {world}-rank launch would train "
+                             "diverging replicas: pass mesh='auto' or a Mesh")
+        return None
+    raise TypeError(f"mesh must be 'auto', None or a Mesh; got {mesh!r}")
+
+
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, *, work_dir: str,
                  train_manifest: Optional[str] = None,
                  dev_manifest: Optional[str] = None, resume: bool = False,
-                 mesh: object = None, device: DeviceLike = None):
+                 mesh: object = "auto", device: DeviceLike = None):
         """Trains on ``device`` (CUDA unless the caller asks for the CPU).
         ``resume`` continues from the latest checkpoint in
-        ``work_dir/checkpoints``, which must carry this config's model hash."""
-        if mesh is not None:
-            raise NotImplementedError("mesh training is not ported yet (ROADMAP "
-                                      "queue A item 6, parallelism)")
+        ``work_dir/checkpoints``, which must carry this config's model hash.
+        ``mesh``: "auto", a ``parallel.mesh.Mesh`` or None (``_resolve_mesh``);
+        with a mesh the rank trains on ``mesh.device`` and
+        ``train.batch_size`` is the global batch."""
         if cfg.data.pipeline == "grain":
             raise NotImplementedError("the grain pipeline is not ported yet "
                                       "(ROADMAP queue A); set data.pipeline=python")
         self.cfg = cfg
         self.work_dir = work_dir
-        self.device = resolve_device(device)
+        self.mesh = mesh = _resolve_mesh(cfg, mesh, device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        # Data ranks shard each planned batch, as JAX's hosts do.
+        shards = dict(shard_index=0, num_shards=1) if mesh is None else dict(
+            shard_index=mesh.data_index, num_shards=mesh.dp)
+        n = shards["num_shards"]
         t, data = cfg.train, cfg.data
         self.train_ds = ManifestDataset(train_manifest or data.train_manifest, data,
                                         cfg.features)
@@ -89,24 +127,41 @@ class Trainer:
             else:
                 self.dev_ds = ds
         target_len = min(data.max_target_len, cfg.model.max_target_positions)
+        per_rank = max(t.batch_size // n, 1)
         self.batcher = BucketedBatcher(
-            self.train_ds, batch_size=t.batch_size,
+            self.train_ds, batch_size=per_rank,
             bucket_boundaries=data.bucket_boundaries, target_len=target_len,
             seed=t.seed, drop_remainder=True,
-            max_frames_per_batch=t.max_frames_per_batch,
-            adaptive_target_len=data.adaptive_target_len)
+            max_frames_per_batch=t.max_frames_per_batch // n,
+            adaptive_target_len=data.adaptive_target_len, **shards)
+        self.dev_batcher = None
         if self.dev_ds is not None:
             self.dev_batcher = BucketedBatcher(
-                self.dev_ds, batch_size=t.batch_size,
+                self.dev_ds, batch_size=per_rank,
                 bucket_boundaries=data.bucket_boundaries, target_len=target_len,
                 seed=0, drop_remainder=False, shuffle=False,
-                adaptive_target_len=data.adaptive_target_len)
+                adaptive_target_len=data.adaptive_target_len, **shards)
+        if mesh is not None:
+            # Each global batch (per-rank rows × shards) must divide the
+            # data axis (JAX runner.py:156-169).
+            q = mesh.dp // math.gcd(mesh.dp, n)
+            for b in (self.batcher, self.dev_batcher):
+                if b is not None:
+                    b.bucket_batch_sizes = [-(-s // q) * q for s in b.bucket_batch_sizes]
 
-        self.logger = MetricsLogger(work_dir, console_every=1)
-        self.ckpt = Checkpointer(f"{work_dir}/checkpoints", max_to_keep=t.keep_checkpoints)
-        self.state = create_train_state(cfg, device=self.device, seed=t.seed)
-        self.step_fn = make_audio_train_step(cfg)
-        self.eval_fn = make_audio_eval_step(cfg)
+        main = mesh is None or mesh.is_main
+        # Every rank computes the records; rank 0 alone writes and prints them.
+        self.logger = MetricsLogger(work_dir if main else None,
+                                    console_every=1 if main else sys.maxsize)
+        self.ckpt = Checkpointer(f"{work_dir}/checkpoints", max_to_keep=t.keep_checkpoints,
+                                 mesh=mesh)
+        self.state = create_train_state(cfg, device=self.device, seed=t.seed, mesh=mesh)
+        if mesh is None:
+            self.step_fn = make_audio_train_step(cfg)
+            self.eval_fn = make_audio_eval_step(cfg)
+        else:
+            self.step_fn = make_sharded_audio_train_step(cfg, mesh)
+            self.eval_fn = make_sharded_audio_eval_step(cfg, mesh)
         # The dropout seed; the bits also depend on the step (train.py).
         self.dropout_seed = t.seed + 1
         self.start_epoch = 0
@@ -115,11 +170,13 @@ class Trainer:
         self.best_dev_step = -1
         self.best_ckpt = None
         if resume:
-            step, restored = self.ckpt.restore(device=self.device)
+            # A mesh rank restores the whole tree on the CPU and takes its shards.
+            step, restored = self.ckpt.restore(
+                device=self.device if mesh is None else "cpu")
             if restored.config_hash and restored.config_hash != cfg.model_hash():
                 raise ValueError(f"checkpoint config hash {restored.config_hash} != "
                                  f"current {cfg.model_hash()}")
-            self.state = create_train_state(cfg, device=self.device,
+            self.state = create_train_state(cfg, device=self.device, mesh=mesh,
                                             params=restored.params, opt=restored.opt)
             self.state.step = step
             self.start_epoch = restored.epoch
@@ -128,12 +185,14 @@ class Trainer:
             # better than the one before it replaces work_dir/best.
             self.best_dev_loss = restored.best_dev_loss
             self.best_dev_step = restored.best_dev_step
-            print(f"resumed from step {step} (epoch {self.start_epoch}, batch "
-                  f"{self.start_batch}, best_dev_loss {self.best_dev_loss:.4f})")
+            if main:
+                print(f"resumed from step {step} (epoch {self.start_epoch}, batch "
+                      f"{self.start_batch}, best_dev_loss {self.best_dev_loss:.4f})")
 
     def _ckpt_state(self, epoch: int, batch_in_epoch: int) -> CheckpointState:
         return CheckpointState.of(self.state, epoch, batch_in_epoch,
-                                  self.cfg.model_hash(), best_dev_loss=self.best_dev_loss,
+                                  self.cfg.model_hash(), mesh=self.mesh,
+                                  best_dev_loss=self.best_dev_loss,
                                   best_dev_step=self.best_dev_step)
 
     def _batches(self, epoch: int, skip: int, stream):
@@ -220,7 +279,8 @@ class Trainer:
             self.best_dev_loss = dev["loss"]
             self.best_dev_step = step
             if self.best_ckpt is None:
-                self.best_ckpt = Checkpointer(f"{self.work_dir}/best", max_to_keep=1)
+                self.best_ckpt = Checkpointer(f"{self.work_dir}/best", max_to_keep=1,
+                                              mesh=self.mesh)
             self.best_ckpt.save(step, self._ckpt_state(epoch, batch_in_epoch))
 
     def evaluate(self, *, decode_cer: bool = False,
@@ -259,7 +319,8 @@ class Trainer:
         return copy.deepcopy(self.state.model).to(dt).eval()
 
     def _greedy_batch(self, model, abatch: AudioBatch):
-        """Greedy-decode one dev batch; returns (refs, hyps) of its valid rows."""
+        """Greedy-decode one dev batch; returns (refs, hyps) of its valid
+        rows (with a mesh, every data rank's, gathered in data order)."""
         batch = make_preprocess_fn(self.cfg.features, None)(abatch, self.device)
         max_len = min(self.cfg.decode.max_decode_len,
                       self.cfg.model.max_target_positions - 1)
@@ -272,6 +333,11 @@ class Trainer:
                 continue
             refs.append([int(t) for t in tout[row, :tlens[row]] if t != EOS and t != PAD])
             hyps.append([t for t in hyps_all[row] if t != EOS])
+        if self.mesh is not None:
+            pairs = [None] * self.mesh.dp
+            dist.all_gather_object(pairs, (refs, hyps), group=self.mesh.data_group)
+            refs = [r for rs, _ in pairs for r in rs]
+            hyps = [h for _, hs in pairs for h in hs]
         return refs, hyps
 
     def _finish(self, epoch: int, batch: int) -> None:

@@ -98,7 +98,7 @@ def make_fused_opt(cfg: ExperimentConfig) -> FusedAdam:
 def create_train_state(cfg: ExperimentConfig, *, device: DeviceLike = None,
                        seed: int = 0,
                        params: Optional[Dict[str, torch.Tensor]] = None,
-                       opt: Optional[AdamState] = None) -> TrainState:
+                       opt: Optional[AdamState] = None, mesh=None) -> TrainState:
     """Build the model on ``device`` (CUDA unless the caller asks for the
     CPU) with f32 master parameters: ``params`` (a state_dict, for example
     ``convert.params_from_jax``) or seeded random weights drawn on the CPU,
@@ -106,13 +106,30 @@ def create_train_state(cfg: ExperimentConfig, *, device: DeviceLike = None,
     moments (``convert.adam_state_from_jax`` brings a JAX one over). With
     ``train.master_weights`` a default ``opt`` takes the f32 parameters as
     its master and the model is cast to ``model.dtype``; a given ``opt``
-    must carry its master."""
-    dev = resolve_device(device)
+    must carry its master.
+
+    With a ``mesh`` (``parallel.mesh.Mesh``) the state is this rank's
+    tensor-parallel shards on the mesh's device: the whole model is built
+    (or loaded) on the CPU, then ``parallel/sharding.shard_params`` takes
+    its shards, and a given whole ``opt`` is sharded the same way.
+    ``train.master_weights`` is single-device only, as in JAX."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     model = SpeechTransformer(cfg.model)
     if params is None:
         model.init_weights(torch.Generator().manual_seed(seed))
     else:
         model.load_state_dict(params)
+    if mesh is not None:
+        from .parallel.sharding import shard_adam_state, shard_params
+
+        if cfg.train.master_weights:
+            raise ValueError("train.master_weights is single-device only (as in "
+                             "the JAX package): turn it off for mesh training")
+        whole = model.state_dict()
+        model = SpeechTransformer(cfg.model, mesh)
+        model.load_state_dict(shard_params(whole, mesh.tp, mesh.model_index))
+        if opt is not None:
+            opt = shard_adam_state(opt, mesh.tp, mesh.model_index, device=dev)
     model = model.to(dev, torch.float32).train()
     if opt is None:
         opt = make_fused_opt(cfg).init(dict(model.named_parameters()))

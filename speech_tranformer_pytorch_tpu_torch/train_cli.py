@@ -3,6 +3,11 @@
   python -m speech_tranformer_pytorch_tpu_torch.train_cli \
       --preset base --data-dir exp/data --work-dir exp/run1 \
       --set train.num_epochs=40 [--resume] [--device cpu]
+
+On several cards, one process each (``--device cpu`` uses gloo ranks):
+
+  torchrun --nproc-per-node 4 -m speech_tranformer_pytorch_tpu_torch.train_cli \
+      --preset sharded --data-dir exp/data --work-dir exp/run1 --mesh on
 """
 
 from __future__ import annotations
@@ -11,9 +16,10 @@ import argparse
 import os
 import sys
 
-from .cli_common import add_common_args, resolve_config, saved_config
+import torch.distributed as dist
 
-_NOT_PORTED = "not ported yet (ROADMAP queue A item 6, parallelism)"
+from .cli_common import add_common_args, resolve_config, run_on_ranks, saved_config
+from .parallel.mesh import make_mesh
 
 
 def main(argv=None):
@@ -25,16 +31,19 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--max-steps", type=int, default=None)
     ap.add_argument("--mesh", choices=("auto", "on", "off"), default="auto",
-                    help="'on' (a device mesh) is not ported; 'auto' and 'off' "
-                         "train on one device")
+                    help="'auto' (default): sharded steps over a ('data','model') "
+                         "mesh of every rank whenever the launch has several "
+                         "ranks or mesh.model_axis > 1; 'on' forces the mesh "
+                         "(mesh.model_axis must divide the ranks); 'off' trains "
+                         "on one device (refused under a multi-rank launch)")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process training: not ported")
+                    help="join a torchrun launch (RANK, WORLD_SIZE, LOCAL_RANK "
+                         "from the environment; each rank takes card LOCAL_RANK)")
     args = ap.parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(f"--distributed is {_NOT_PORTED}")
-    if args.mesh == "on":
-        raise NotImplementedError(f"--mesh on is {_NOT_PORTED}")
+    return run_on_ranks(args, _run)
 
+
+def _run(args, device):
     saved = os.path.join(args.work_dir, "config.json")
     if args.resume and os.path.exists(saved):
         # The run's own saved config is the base, so a change of library
@@ -46,16 +55,24 @@ def main(argv=None):
         cfg = saved_config(saved, args.overrides).validate()
     else:
         cfg = resolve_config(args)
-    os.makedirs(args.work_dir, exist_ok=True)
-    with open(saved, "w") as f:
-        f.write(cfg.to_json())
+    joined = dist.is_initialized()
+    main_rank = not joined or dist.get_rank() == 0
+    if joined:
+        dist.barrier()           # every rank has read config.json
+    if main_rank:
+        os.makedirs(args.work_dir, exist_ok=True)
+        with open(saved, "w") as f:
+            f.write(cfg.to_json())
 
     from .runner import Trainer
+    mesh = (make_mesh(cfg.mesh, device=device) if args.mesh == "on"
+            else {"auto": "auto", "off": None}[args.mesh])
     trainer = Trainer(cfg, work_dir=args.work_dir, train_manifest=args.train_manifest,
                       dev_manifest=args.dev_manifest, resume=args.resume,
-                      device=args.device)
+                      mesh=mesh, device=device)
     trainer.train(max_steps=args.max_steps)
-    print(f"done: step={trainer.state.step} work_dir={args.work_dir}")
+    if main_rank:
+        print(f"done: step={trainer.state.step} work_dir={args.work_dir}")
 
 
 if __name__ == "__main__":

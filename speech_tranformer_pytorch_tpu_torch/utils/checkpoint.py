@@ -12,6 +12,13 @@ JAX package writes it, so the two packages' runs compare by that file.
 There is no RNG key: the port's dropout and SpecAugment bits come from
 generators seeded by (seed, step) alone (``ops/dropout.step_generator``),
 so the step restores them. Saving is synchronous; ``wait`` has nothing to wait for.
+
+A mesh run (``Checkpointer(..., mesh=mesh)``) writes the same single-device
+file: ``CheckpointState.of(..., mesh=mesh)`` gathers the tensor-parallel
+shards (every model rank takes part), rank 0 alone writes, and every rank
+waits for the write, so a later restore on any rank finds it. Each rank
+restores the whole tree and takes its shards (``train.create_train_state``
+with the mesh); ``load_recognizer`` serves it with or without a mesh.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import re
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..device import DeviceLike
 from ..ops.fused_adam import AdamState
@@ -46,15 +54,25 @@ class CheckpointState:
 
     @classmethod
     def of(cls, state: TrainState, epoch: int, batch_in_epoch: int, config_hash: str,
-           **kw) -> "CheckpointState":
+           mesh=None, **kw) -> "CheckpointState":
+        """The state's tree; with ``mesh`` the whole tree gathered from the
+        model ranks' shards (a collective)."""
         params = {k: p.detach() for k, p in state.model.state_dict().items()}
-        return cls(params, state.opt, epoch, batch_in_epoch, config_hash, **kw)
+        opt = state.opt
+        if mesh is not None:
+            from ..parallel.sharding import gather_adam_state, gather_params
+
+            params, opt = gather_params(params, mesh), gather_adam_state(opt, mesh)
+            kw.setdefault("num_devices", mesh.world)
+        return cls(params, opt, epoch, batch_in_epoch, config_hash, **kw)
 
 
 class Checkpointer:
-    def __init__(self, directory: str, *, max_to_keep: int = 5):
+    def __init__(self, directory: str, *, max_to_keep: int = 5, mesh=None):
+        """``mesh``: a mesh run's checkpoints, written by rank 0 alone."""
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -71,7 +89,19 @@ class Checkpointer:
     def save(self, step: int, ckpt: CheckpointState) -> bool:
         """Write step ``step``; keep the newest ``max_to_keep`` files. A step
         at or below the latest saved one is not written (as the JAX
-        package's checkpoint manager skips it): returns whether it was."""
+        package's checkpoint manager skips it): returns whether it was.
+        With a mesh every rank calls it, and returns once rank 0's write
+        is done."""
+        if self.mesh is None:
+            return self._write(step, ckpt)
+        dist.barrier()                 # every rank sees the same latest step
+        wrote = self.latest_step() is None or step > self.latest_step()
+        if wrote and self.mesh.is_main:
+            self._write(step, ckpt)
+        dist.barrier()
+        return wrote
+
+    def _write(self, step: int, ckpt: CheckpointState) -> bool:
         latest = self.latest_step()
         if latest is not None and step <= latest:
             return False

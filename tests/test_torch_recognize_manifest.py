@@ -32,6 +32,7 @@ from speech_tranformer_pytorch_tpu_torch.data.prepare import (  # noqa: E402
     prepare_synthetic, read_manifest, write_manifest)
 from speech_tranformer_pytorch_tpu_torch.data.tokenizer import (  # noqa: E402
     BpeTokenizer, load_tokenizer)
+from speech_tranformer_pytorch_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from speech_tranformer_pytorch_tpu_torch.recognize import (  # noqa: E402
     Recognizer, load_recognizer)
 from speech_tranformer_pytorch_tpu_torch.runner import Trainer  # noqa: E402
@@ -149,10 +150,15 @@ def test_load_recognizer_from_port_checkpoint(trained):
 
 
 def test_mesh_and_distributed_are_refused(trained):
+    """What the mesh path refuses, as JAX's does: int8 serving with a mesh,
+    and a distributed decode without one."""
     _, paths, params = trained
     cfg = get_config("tiny", **MODEL)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        Recognizer(cfg, params, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
+    mesh = Mesh(1, 1, 0, torch.device("cpu"), None, None, [0])
+    for flag in ("int8_weights", "int8_kv_cache"):
+        int8 = cfg.replace(decode=cfg.decode.replace(**{flag: True}))
+        with pytest.raises(ValueError, match="single-device"):
+            Recognizer(int8, params, device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="needs a mesh"):
         Recognizer(cfg, params, device="cpu").decode_manifest(paths["train"],
                                                               distributed=True)

@@ -329,11 +329,16 @@ def test_cli_refusals(tmp_path):
         recognize_cli.main(["--data-dir", str(data), "--work-dir", str(work),
                             "--split", "train", "--checkpoint", "best",
                             "--device", "cpu"])
-    for flag in (["--mesh", "on"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            train_cli.main(common + flag)
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            recognize_cli.main(["--data-dir", str(data), "--work-dir", str(work)] + flag)
+    # A model axis that does not divide the ranks is refused, and the
+    # one-rank process group the CLI started is released.
+    rec = ["--data-dir", str(data), "--work-dir", str(work)]
+    bad = ["--set", "mesh.model_axis=2", "--device", "cpu"]
+    for cli, args in ((train_cli, common + ["--mesh", "on"]),
+                      (recognize_cli, rec + ["--mesh", "on"]),
+                      (recognize_cli, rec + ["--distributed"])):
+        with pytest.raises(ValueError, match="must divide"):
+            cli.main(args + bad)
+        assert not torch.distributed.is_initialized()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             prepare_cli.main(["synthetic", "--out", str(tmp_path / "d2")])
