@@ -35,7 +35,13 @@ Phases (any failure exits non-zero before the final line):
   3. the serving main path: ``Recognizer.decode_batch`` at the ``base``
      preset (full width, bf16, seeded random weights) serving 8 int16
      utterances of 4-6 s with beam 5 and max_len 100, with the kernels'
-     exact launch counts; then the int8 serving path (``int8_path``): the
+     exact launch counts, and the same batch decoded in float32 with
+     ``use_lineage=False`` (the self cache gathered by beam), token-equal
+     to the lineage route; then ``export_path``: the same recognizer
+     exported for serving (``serving.export_recognizer``, beam 5 and
+     greedy), through bytes and ``load_exported``, equal to the live
+     decode with exact launch counts, its export seconds, artifact bytes
+     and walls beside the live decode's; then the int8 serving path (``int8_path``): the
      same batch with int8 weights and the int8 cross-K/V cache, at beam 5
      and greedily (beam 1), each with exact launch counts;
   4. each serving path in float32 on 2 utterances, on the card with the
@@ -338,7 +344,8 @@ def check_beam_prune(torch, dev):
 # Tolerances as the JAX goldens (tests/test_lineage_attention_kernel.py):
 # f32 2e-6 (summation order only), bf16 2e-2 (the weights are rounded to
 # bf16 before the AV product). Every case must be bit-identical on a
-# second call. The `sharded` preset's decode in parallel_path runs the
+# second call, and with the index given as a device int32 (the route of
+# an exported decode loop, whose kernel reads the index itself). The `sharded` preset's decode in parallel_path runs the
 # kernel at D 128 (16 lanes a row, not 8) with 16 heads on one card and 4
 # a rank under TP 4: both are checked on its 40 rows x L 100 at index 0,
 # 49 and 99 and at K = 1. Timed in bf16 at index 0, 49 and 99 of the
@@ -380,19 +387,26 @@ def check_lineage(torch, dev):
             args = inputs(dtype=dtype, **kw)
             got = la.lineage_attention_cuda(*args, kw["index"], k)
             again = la.lineage_attention_cuda(*args, kw["index"], k)
+            # The index as a device int32, read by the kernel (an exported
+            # decode loop's step).
+            on_dev = la.lineage_attention_cuda(
+                *args, torch.tensor(kw["index"], dtype=torch.int32, device=dev), k)
             want = la.lineage_attention_reference(*args, kw["index"], k)
             torch.cuda.synchronize()
             name = f"lineage_attention[{str(dtype)[6:]},{label}]"
             if got.dtype != dtype or got.shape != want.shape:
                 raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}")
             same = bool(torch.equal(got, again))
+            same_dev = bool(torch.equal(got, on_dev))
             errs[(dtype, label)] = check_close(name, got, want, atol, 1e-5)
             emit({"check": {"name": name, "max_abs_err": errs[(dtype, label)],
-                            "second_call_bit_equal": same}})
-            if not same:
+                            "second_call_bit_equal": same,
+                            "device_index_bit_equal": same_dev}})
+            if not (same and same_dev):
                 failed.append(name)
     if failed:
-        raise AssertionError(f"lineage_attention differs on a second call: {failed}")
+        raise AssertionError(f"lineage_attention differs on a second call or with "
+                             f"a device index: {failed}")
     recs = {}
     for label, k, L, index, h, d in LINEAGE_TIMED:
         args = inputs(index, torch.bfloat16, k=k, L=L, h=h, d=d)
@@ -1662,6 +1676,8 @@ def main_path(torch, dev, int8: bool = False):
         "rtf": wall / audio_s, "decode_steps": steps,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
         "launches": counts, "hyp_lens": [len(h) for h in hyps]}})
+    if not int8:
+        gathered_cache_check(torch, dev, params, audio, lens)
     return counts, params, audio, lens
 
 
@@ -1715,6 +1731,129 @@ def card_vs_cpu(torch, dev, params, audio, lens, int8: bool = False):
             raise AssertionError(f"beam {beam}: first-step logits differ by {logit_err}")
     emit({"int8_card_vs_cpu" if int8 else "card_vs_cpu":
           report if int8 else report[f"beam_{DECODE['beam_size']}"]})
+
+
+def gathered_cache_check(torch, dev, params, audio, lens):
+    """The main path's batch decoded in float32 at beam 5 on the lineage
+    route and with ``use_lineage=False`` (the self cache gathered by beam
+    every step, plain masked attention): tokens and lengths must be equal.
+    bf16 is not used here: its sums in another order may flip ties."""
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.data.features import extract_features
+    from speech_tranformer_pytorch_tpu_torch.decoding import beam_decode
+    from speech_tranformer_pytorch_tpu_torch.profile_decode import DECODE
+    from speech_tranformer_pytorch_tpu_torch.recognize import Recognizer
+
+    cfg = get_config("base", **{"model.dtype": "float32",
+                                "features.output_dtype": "float32"})
+    rec = Recognizer(cfg, params, device=dev)
+    feats, flens = extract_features(audio, lens, cfg.features, device=dev)
+    out = {}
+    for use_lineage in (True, False):
+        t0 = time.perf_counter()
+        r = beam_decode(rec.model, feats, flens, **DECODE, use_lineage=use_lineage,
+                        device=dev)
+        torch.cuda.synchronize()
+        out[use_lineage] = (r, time.perf_counter() - t0)
+    (lin, lin_s), (gat, gat_s) = out[True], out[False]
+    equal = (bool(torch.equal(lin.tokens, gat.tokens))
+             and bool(torch.equal(lin.lengths, gat.lengths)))
+    report = {"tokens_equal": equal, "steps": [lin.steps, gat.steps],
+              "score_err": float((lin.scores - gat.scores).abs().max()),
+              "wall_s_lineage": lin_s, "wall_s_gathered": gat_s}
+    emit({"gathered_cache_f32": report})
+    if not equal:
+        raise AssertionError(f"use_lineage=False decodes other tokens: {report}")
+
+
+def export_path(torch, dev):
+    """The ``base`` recognizer exported for serving (``serving.py``) at beam
+    5 and greedily, max_len 100, for ``smoke_batch``'s 8 utterances (features
+    computed outside the timed calls): each artifact through bytes and
+    ``load_exported``, its tokens and lengths equal to the live
+    ``beam_decode``/``greedy_decode`` of the same model (early stop on),
+    scores within 1e-5, and its launches exactly
+    ``expected_serve_launches`` of 100 steps without the fbank. Prints the
+    export seconds, the artifact's bytes and the median of 3 calls of the
+    artifact and of the live decode (before any export in this process and
+    after each)."""
+    from speech_tranformer_pytorch_tpu_torch.data.features import extract_features
+    from speech_tranformer_pytorch_tpu_torch.decoding import beam_decode, greedy_decode
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.profile_decode import DECODE, smoke_batch
+    from speech_tranformer_pytorch_tpu_torch.serving import (export_recognizer,
+                                                             flatten_params, load_exported)
+
+    cfg, params, rec, audio, lens = smoke_batch(dev)
+    max_len = DECODE["max_len"]
+    feats, flens = extract_features(audio, lens, cfg.features, device=dev)
+    flat = [x.to(dev) for x in flatten_params(params)]
+    args = (flat, feats.float(), flens.to(torch.int32))
+    total, report = {}, {}
+
+    def walls(fn, n=3):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    def live_fn(beam):
+        if beam > 1:
+            return lambda: beam_decode(rec.model, feats, flens, beam_size=beam,
+                                       max_len=max_len, alpha=DECODE["alpha"], device=dev)
+        return lambda: greedy_decode(rec.model, feats, flens, max_len=max_len, device=dev)
+
+    modes = (("beam5", DECODE["beam_size"]), ("greedy", 1))
+    live = {}
+    for name, beam in modes:   # the live decodes, before any export in this process
+        live[name] = live_fn(beam)()
+        live[name + "_wall_s"] = statistics.median(walls(live_fn(beam)))
+    for name, beam in modes:
+        t0 = time.perf_counter()
+        data = export_recognizer(cfg, params, batch_size=feats.shape[0],
+                                 frames=feats.shape[1], beam_size=beam, max_len=max_len,
+                                 alpha=DECODE["alpha"], device=dev)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn = load_exported(data)
+        load_s = time.perf_counter() - t0
+        fn(*args)                                   # first call
+        torch.cuda.synchronize()
+        interface.reset_launch_counts()
+        tokens, lengths, scores = fn(*args)
+        torch.cuda.synchronize()
+        counts = interface.launch_counts()
+        want = dict(expected_serve_launches(cfg, max_len, False, beam), stft_mel=0)
+        if counts != want:
+            raise AssertionError(f"{name} artifact launches {counts}, expected {want}")
+        ref = live[name]
+        live_tokens = ref.tokens if beam > 1 else ref.tokens[:, None]
+        live_lens = ref.lengths if beam > 1 else ref.lengths[:, None]
+        shape = (feats.shape[0], beam, max_len)
+        if tuple(tokens.shape) != shape or tokens.dtype != torch.int32:
+            raise AssertionError(f"{name} artifact tokens {tokens.dtype} "
+                                 f"{tuple(tokens.shape)}, expected int32 {shape}")
+        equal = (bool(torch.equal(tokens, live_tokens))
+                 and bool(torch.equal(lengths, live_lens)))
+        score_err = (float((scores - ref.scores).abs().max()) if beam > 1
+                     else float(scores.abs().max()))
+        report[name] = {
+            "export_s": export_s, "load_s": load_s, "artifact_bytes": len(data),
+            "tokens_equal": equal, "score_err": score_err, "live_steps": ref.steps,
+            "artifact_wall_s": statistics.median(walls(lambda: fn(*args))),
+            "live_wall_s_before_export": live[name + "_wall_s"],
+            "live_wall_s": statistics.median(walls(live_fn(beam))),
+            "launches": counts}
+        emit({"export_path": {name: report[name]}})
+        if not equal or not score_err <= 1e-5:
+            raise AssertionError(f"{name} artifact differs from the live decode: "
+                                 f"{report[name]}")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2496,9 +2635,10 @@ def parallel_path(torch, dev):
 
 CHECKS = ("check_fbank", "check_beam_prune", "check_lineage", "check_flash",
           "check_ring_blocks", "check_adam", "check_int8_matmul", "check_int8_ffn")
-PHASES = CHECKS + ("main_path", "card_vs_cpu", "int8_path", "int8_card_vs_cpu",
-                   "train_path", "large_train_path", "train_card_vs_cpu",
-                   "overfit_anchor", "manifest_path", "drive_recipe", "parallel_path")
+PHASES = CHECKS + ("main_path", "export_path", "card_vs_cpu", "int8_path",
+                   "int8_card_vs_cpu", "train_path", "large_train_path",
+                   "train_card_vs_cpu", "overfit_anchor", "manifest_path", "drive_recipe",
+                   "parallel_path")
 
 
 def main() -> int:
@@ -2540,7 +2680,8 @@ def main() -> int:
             else:
                 recs += out if isinstance(out, list) else [out]
             emit({"phase_s": {name: time.perf_counter() - t0}})
-    counts = {"serve": {}, "serve_int8": {}, "train": {}, "large": {}, "large_master": {},
+    counts = {"serve": {}, "export": {}, "serve_int8": {}, "train": {}, "large": {},
+              "large_master": {},
               "large_trainer": {}, "librispeech": {}, "manifest": {}, "recipe": {},
               "parallel": {}}
     for path, int8 in (("serve", False), ("serve_int8", True)):
@@ -2551,6 +2692,10 @@ def main() -> int:
             if ("int8_" if int8 else "") + "card_vs_cpu" in phases:
                 card_vs_cpu(torch, dev, params, audio, lens, int8=int8)
             emit({"phase_s": {name: time.perf_counter() - t0}})
+        if path == "serve" and "export_path" in phases:
+            t0 = time.perf_counter()
+            counts["export"] = export_path(torch, dev)
+            emit({"phase_s": {"export_path": time.perf_counter() - t0}})
     if "train_path" in phases:
         counts["train"] = train_path(torch, dev)
     if "large_train_path" in phases:

@@ -9,9 +9,19 @@ mirror the JAX package's so each counterpart is easy to find. Entry points
 lineage attention, flash attention forward, dK/dV and dQ, fused Adam, int8
 matmul, fused int8 feed-forward) live under ``csrc/`` and are dispatched
 by ``kernels/interface.py``.
+
+Importing the package imports nothing else of it: a serving process that
+loads an exported recognizer (``serving.load_exported``) needs the kernel
+operators and not the model code or the config system.
 """
 
-from . import config
-from .config import ExperimentConfig, get_config
-
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    if name in ("config", "ExperimentConfig", "get_config"):
+        import importlib
+
+        config = importlib.import_module(f"{__name__}.config")
+        return config if name == "config" else getattr(config, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

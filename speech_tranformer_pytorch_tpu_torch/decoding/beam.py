@@ -4,13 +4,19 @@
 The whole batch and all K beams advance together; state is fixed-shape
 [B, K, ...]. Each step takes the top-2K candidates over the flattened K·V
 scores (``kernels/interface.beam_candidate_topk``), routes <eos> candidates
-to the finished pool and keeps the best K others alive. The self-attention
-KV cache is never reordered: a [B, K, L] lineage table records which cache
-lane holds each beam's step-j entry. Finished hypotheses are ranked by
-``score / lp(len)`` with the GNMT penalty ``lp(n) = ((5+n)/6)^alpha``. The
+to the finished pool and keeps the best K others alive. By default
+(``use_lineage=True``) the self-attention KV cache is never reordered: a
+[B, K, L] lineage table records which cache lane holds each beam's step-j
+entry. ``use_lineage=False`` gathers the cache by beam after every step
+instead, as JAX's ``_gather_beams`` does, and attends in plain PyTorch.
+Finished hypotheses are ranked by ``score / lp(len)`` with the GNMT
+penalty ``lp(n) = ((5+n)/6)^alpha``. With ``early_stop`` (the default) the
 loop stops as soon as no alive beam can beat the worst finished one (an
-exact bound, not an approximation). Every top-k uses ``topk_stable``, whose
-tie order is ``jax.lax.top_k``'s.
+exact bound, not an approximation), which costs one host sync a step;
+``early_stop=False`` runs exactly ``max_len`` steps with no host sync, the
+fixed-trip loop that ``serving.export_recognizer`` exports, with the same
+results. Every top-k uses ``topk_stable``, whose tie order is
+``jax.lax.top_k``'s.
 """
 
 from __future__ import annotations
@@ -48,6 +54,70 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx)
 
 
+def _gather_beams(x: torch.Tensor, src_beam: torch.Tensor) -> torch.Tensor:
+    """Reorder the [B·K, ...] rows of ``x`` by ``src_beam`` [B, K]."""
+    b, k = src_beam.shape
+    return _take(x.reshape((b, k) + x.shape[1:]), src_beam).reshape(x.shape)
+
+
+_SELF = ("self_k", "self_v")
+
+
+def split_cache(cache):
+    """(the decode cache's beam-invariant part, its self-attention K/V): the
+    first is read by every step, the second is the decode loop's carry."""
+    const = {n: {key: t for key, t in c.items() if key not in _SELF}
+             for n, c in cache.items()}
+    own = {n: {key: c[key] for key in _SELF} for n, c in cache.items() if "self_k" in c}
+    return const, own
+
+
+def decode_step(model: SpeechTransformer, tokens, index, const, own, mem_lens,
+                beam_width: int, lineage):
+    """``model.decode_step`` on a cache held as ``split_cache`` parts:
+    (logits, the new self-attention K/V)."""
+    cache = {n: {**c, **own.get(n, {})} for n, c in const.items()}
+    logits, cache = model.decode_step(tokens, index, cache, mem_lens, beam_width, lineage)
+    return logits, {n: {key: cache[n][key] for key in _SELF} for n in own}
+
+
+def decode_loop(step, carry, max_len: int, *, device, stop=None):
+    """Run ``carry = step(carry, i)`` for i = 0 .. max_len - 1; returns
+    (carry, steps run).
+
+    Eagerly this is a Python loop with ``i`` an int; ``stop(carry)``, when
+    given, is asked before each step and ends the loop early (one host sync
+    a step). While ``torch.export`` traces, it is one ``while_loop`` whose
+    step is traced once with ``i`` a 0-d int32 on ``device``, and whose
+    test reads a step counter kept on the host, so the exported loop runs
+    its ``max_len`` steps with no device sync; ``stop`` must be None."""
+    if torch.compiler.is_exporting():
+        if stop is not None:
+            raise ValueError("an exported decode loop runs a fixed number of steps: "
+                             "pass early_stop=False")
+        from torch._higher_order_ops.while_loop import while_loop
+        from torch.utils import _pytree as pytree
+
+        leaves, spec = pytree.tree_flatten(carry)
+
+        def body(n, i, *leaves):
+            out = step(pytree.tree_unflatten(list(leaves), spec), i)
+            return (n + 1, i + 1, *pytree.tree_leaves(out))
+
+        _, _, *leaves = while_loop(
+            lambda n, i, *_: n < max_len, body,
+            (torch.zeros((), dtype=torch.int64),                      # host counter
+             torch.zeros((), dtype=torch.int32, device=device), *leaves))
+        return pytree.tree_unflatten(leaves, spec), max_len
+    steps = 0
+    for i in range(max_len):
+        if stop is not None and stop(carry):
+            break
+        carry = step(carry, i)
+        steps += 1
+    return carry, steps
+
+
 @torch.no_grad()
 def beam_search(
     model: SpeechTransformer,
@@ -58,74 +128,93 @@ def beam_search(
     max_len: int,
     alpha: float = 1.0,
     int8_kv: bool = False,
+    early_stop: bool = True,
+    use_lineage: bool = True,
 ) -> BeamResult:
     b, k = memory.shape[0], beam_size
     dev = memory.device
     i32 = dict(dtype=torch.int32, device=dev)
-    cache = model.init_cache(memory, max_len, k, int8_kv)
+    const, own = split_cache(model.init_cache(memory, max_len, k, int8_kv))
 
     # Only beam 0 is live at step 0 (all beams would be identical).
-    alive_scores = torch.tensor([0.0] + [NEG_INF] * (k - 1), device=dev).repeat(b, 1)
-    alive_tokens = torch.full((b, k, max_len), PAD, **i32)
-    cur_tokens = torch.full((b, k), SOS, **i32)
-    fin_tokens = torch.full((b, k, max_len), PAD, **i32)
-    fin_scores = torch.full((b, k), NEG_INF, device=dev)
-    fin_lens = torch.zeros((b, k), **i32)
+    carry = dict(
+        cur_tokens=torch.full((b, k), SOS, **i32),
+        alive_tokens=torch.full((b, k, max_len), PAD, **i32),
+        alive_scores=torch.tensor([0.0] + [NEG_INF] * (k - 1), device=dev).repeat(b, 1),
+        fin_tokens=torch.full((b, k, max_len), PAD, **i32),
+        fin_scores=torch.full((b, k), NEG_INF, device=dev),
+        fin_lens=torch.zeros((b, k), **i32), cache=own)
     # lineage[b, k, j]: the cache lane holding beam k's step-j key/value.
     identity = torch.arange(k, **i32)[None, :, None].expand(b, k, max_len)
-    lineage = identity.clone()
+    if use_lineage:
+        carry["lineage"] = identity.clone()
     positions = torch.arange(max_len, device=dev)[None, None, :]
-    max_lp = length_penalty(torch.tensor(max_len), alpha).to(dev)
 
-    steps = 0
-    for i in range(max_len):
-        # An alive hypothesis can at best reach score / lp(max_len): stop
-        # once that is <= the worst finished score everywhere (one host
-        # sync per step).
-        bound = alive_scores.max(dim=1).values / max_lp
-        worst_fin = fin_scores.min(dim=1).values
-        pool_full = worst_fin > NEG_INF / 2.0
-        if not bool(torch.any(~pool_full | (bound > worst_fin))):
-            break
-        logits, cache = model.decode_step(cur_tokens.reshape(b * k), i, cache,
-                                          mem_lens, k, lineage)
+    def step(c, i):
+        logits, own = decode_step(model, c["cur_tokens"].reshape(b * k), i, const,
+                                  c["cache"], mem_lens, k, c.get("lineage"))
         v = logits.shape[-1]
         top_scores, top_idx = interface.beam_candidate_topk(
-            logits, alive_scores, k2=2 * k, pad_id=PAD, sos_id=SOS)
+            logits, c["alive_scores"], k2=2 * k, pad_id=PAD, sos_id=SOS)
         top_idx = top_idx.long()
         top_beam = torch.div(top_idx, v, rounding_mode="floor")
         top_tok = (top_idx % v).to(torch.int32)
 
-        seqs = _take(alive_tokens, top_beam)                   # [B, 2K, L]
-        seqs[:, :, i] = top_tok
+        seqs = torch.where(positions == i, top_tok[:, :, None],        # [B, 2K, L]
+                           _take(c["alive_tokens"], top_beam))
         is_eos = top_tok == EOS
 
         # Finished pool: the existing K plus the new <eos> candidates.
-        new_fin_lens = torch.full((b, 2 * k), i, **i32)
+        new_fin_lens = torch.zeros((b, 2 * k), **i32) + i
         penalized = top_scores / length_penalty(new_fin_lens, alpha)
         cand_fin = torch.where(is_eos, penalized, torch.full_like(penalized, NEG_INF))
-        fin_scores, fin_sel = topk_stable(torch.cat([fin_scores, cand_fin], 1), k)
-        fin_tokens = _take(torch.cat([fin_tokens, seqs], 1), fin_sel)
-        fin_lens = _take(torch.cat([fin_lens, new_fin_lens], 1), fin_sel)
+        fin_scores, fin_sel = topk_stable(torch.cat([c["fin_scores"], cand_fin], 1), k)
+        out = dict(
+            fin_scores=fin_scores.contiguous(),   # a carry keeps its strides
+            fin_tokens=_take(torch.cat([c["fin_tokens"], seqs], 1), fin_sel),
+            fin_lens=_take(torch.cat([c["fin_lens"], new_fin_lens], 1), fin_sel))
 
         # Alive set: the best K non-eos candidates.
         alive_cand = torch.where(is_eos, torch.full_like(top_scores, NEG_INF),
                                  top_scores)
         alive_scores, alive_sel = topk_stable(alive_cand, k)
-        alive_tokens = _take(seqs, alive_sel)
-        cur_tokens = _take(top_tok, alive_sel)
+        out["alive_scores"] = alive_scores.contiguous()
+        out["alive_tokens"] = _take(seqs, alive_sel)
+        out["cur_tokens"] = _take(top_tok, alive_sel)
         src_beam = _take(top_beam, alive_sel)                  # [B, K]
 
-        # Compose the beam permutation into the lineage table: columns <= i
-        # follow the chosen parents, later columns stay identity.
-        lineage = torch.where(positions <= i, _take(lineage, src_beam), identity)
-        steps += 1
+        if use_lineage:
+            # Compose the beam permutation into the lineage table: columns
+            # <= i follow the chosen parents, later columns stay identity.
+            out["lineage"] = torch.where(positions <= i, _take(c["lineage"], src_beam),
+                                         identity)
+        else:   # gather the self cache (cross K/V are beam-invariant)
+            own = {n: {key: _gather_beams(t, src_beam) for key, t in layer.items()}
+                   for n, layer in own.items()}
+        out["cache"] = own
+        return {key: out[key] for key in c}   # in the carry's order
+
+    done = None
+    if early_stop:
+        max_lp = length_penalty(torch.tensor(max_len), alpha).to(dev)
+
+        def done(c) -> bool:
+            # An alive hypothesis can at best reach score / lp(max_len): stop
+            # once that is <= the worst finished score everywhere; the steps
+            # left would change nothing.
+            bound = c["alive_scores"].max(dim=1).values / max_lp
+            worst_fin = c["fin_scores"].min(dim=1).values
+            pool_full = worst_fin > NEG_INF / 2.0
+            return not bool(torch.any(~pool_full | (bound > worst_fin)))
+
+    c, steps = decode_loop(step, carry, max_len, device=dev, stop=done)
 
     # Still-alive beams join the pool, penalized at full length.
-    alive_pen = alive_scores / length_penalty(torch.full((b, k), max_len, **i32), alpha)
-    all_scores = torch.cat([fin_scores, alive_pen], 1)
-    all_tokens = torch.cat([fin_tokens, alive_tokens], 1)
-    all_lens = torch.cat([fin_lens, torch.full((b, k), max_len, **i32)], 1)
+    alive_pen = c["alive_scores"] / length_penalty(
+        torch.full((b, k), max_len, **i32), alpha)
+    all_scores = torch.cat([c["fin_scores"], alive_pen], 1)
+    all_tokens = torch.cat([c["fin_tokens"], c["alive_tokens"]], 1)
+    all_lens = torch.cat([c["fin_lens"], torch.full((b, k), max_len, **i32)], 1)
     final_scores, sel = topk_stable(all_scores, k)
     return BeamResult(tokens=_take(all_tokens, sel), lengths=_take(all_lens, sel),
                       scores=final_scores, steps=steps)
@@ -142,12 +231,15 @@ def beam_decode(
     alpha: float = 1.0,
     int8_kv: bool = False,
     device: DeviceLike = None,
+    early_stop: bool = True,
+    use_lineage: bool = True,
 ) -> BeamResult:
     """Encode + beam search on ``device`` (CUDA unless the caller asks for
     the CPU); the model must already live there."""
     memory, mem_lens = encode_on(model, feats, frame_lens, device)
     return beam_search(model, memory, mem_lens, beam_size=beam_size,
-                       max_len=max_len, alpha=alpha, int8_kv=int8_kv)
+                       max_len=max_len, alpha=alpha, int8_kv=int8_kv,
+                       early_stop=early_stop, use_lineage=use_lineage)
 
 
 def encode_on(model: SpeechTransformer, feats, frame_lens, device: DeviceLike):

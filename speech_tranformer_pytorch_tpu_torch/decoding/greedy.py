@@ -2,9 +2,11 @@
 
 The whole batch advances together, one token a step: the argmax of each
 row's logits with <pad> and <sos> never emitted; a row that has emitted
-<eos> emits <pad> from then on. The loop stops as soon as every row has
-emitted <eos> (one host sync per step), which is exact: a finished row
-only appends <pad>, as the remaining steps would. Each step is
+<eos> emits <pad> from then on. With ``early_stop`` (the default) the loop
+stops as soon as every row has emitted <eos> (one host sync per step),
+which is exact: a finished row only appends <pad>, as the remaining steps
+would; ``early_stop=False`` runs all ``max_len`` steps with no host sync
+(the loop ``serving.export_recognizer`` exports). Each step is
 ``SpeechTransformer.decode_step`` at beam width 1 with the identity lineage
 table (all zeros), so self-attention runs the lineage kernel as beam search
 does; the JAX K=1 path uses masked dot attention, equal up to f32
@@ -19,7 +21,7 @@ import torch
 
 from ..device import DeviceLike
 from ..models import SpeechTransformer
-from .beam import EOS, PAD, SOS, encode_on
+from .beam import EOS, PAD, SOS, decode_loop, decode_step, encode_on, split_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,37 +34,41 @@ class GreedyResult:
 @torch.no_grad()
 def greedy_search(model: SpeechTransformer, memory: torch.Tensor,
                   mem_lens: torch.Tensor, *, max_len: int,
-                  int8_kv: bool = False) -> GreedyResult:
+                  int8_kv: bool = False, early_stop: bool = True) -> GreedyResult:
     b, dev = memory.shape[0], memory.device
-    cache = model.init_cache(memory, max_len, 1, int8_kv)
+    const, own = split_cache(model.init_cache(memory, max_len, 1, int8_kv))
     lineage = torch.zeros((b, 1, max_len), dtype=torch.int32, device=dev)
-    tokens = torch.full((b, max_len), PAD, dtype=torch.int32, device=dev)
-    cur = torch.full((b,), SOS, dtype=torch.int32, device=dev)
-    finished = torch.zeros((b,), dtype=torch.bool, device=dev)
-    steps = 0
-    for i in range(max_len):
-        logits, cache = model.decode_step(cur, i, cache, mem_lens, 1, lineage)
-        logits[:, PAD] = float("-inf")
-        logits[:, SOS] = float("-inf")
+    positions = torch.arange(max_len, device=dev)[None, :]
+
+    def step(c, i):
+        cur, finished, tokens, own = c
+        logits, own = decode_step(model, cur, i, const, own, mem_lens, 1, lineage)
+        logits[:, PAD].fill_(float("-inf"))
+        logits[:, SOS].fill_(float("-inf"))
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         nxt = torch.where(finished, torch.full_like(nxt, PAD), nxt)
-        finished = finished | (nxt == EOS)
-        tokens[:, i] = nxt
-        cur = nxt
-        steps += 1
-        if bool(finished.all()):
-            break
+        tokens = torch.where(positions == i, nxt[:, None], tokens)
+        return nxt, finished | (nxt == EOS), tokens, own
+
+    carry = (torch.full((b,), SOS, dtype=torch.int32, device=dev),
+             torch.zeros((b,), dtype=torch.bool, device=dev),
+             torch.full((b, max_len), PAD, dtype=torch.int32, device=dev), own)
+    (_, _, tokens, _), steps = decode_loop(
+        step, carry, max_len, device=dev,
+        stop=(lambda c: bool(c[1].all())) if early_stop else None)
     lengths = ((tokens != EOS) & (tokens != PAD)).sum(dim=-1, dtype=torch.int32)
     return GreedyResult(tokens=tokens, lengths=lengths, steps=steps)
 
 
 @torch.no_grad()
 def greedy_decode(model: SpeechTransformer, feats, frame_lens, *, max_len: int,
-                  int8_kv: bool = False, device: DeviceLike = None) -> GreedyResult:
+                  int8_kv: bool = False, device: DeviceLike = None,
+                  early_stop: bool = True) -> GreedyResult:
     """Encode + greedy search on ``device`` (CUDA unless the caller asks
     for the CPU); the model must already live there."""
     memory, mem_lens = encode_on(model, feats, frame_lens, device)
-    return greedy_search(model, memory, mem_lens, max_len=max_len, int8_kv=int8_kv)
+    return greedy_search(model, memory, mem_lens, max_len=max_len, int8_kv=int8_kv,
+                         early_stop=early_stop)
 
 
 def tokens_to_lists(result: GreedyResult):

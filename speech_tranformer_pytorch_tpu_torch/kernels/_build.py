@@ -54,8 +54,8 @@ SIGNATURES = {
     # pad_id, sos_id, stream
     "st_beam_prune_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, lineage, out, batch, beams, max_len, heads, head_dim,
-    # index, is_bf16, stream
-    "st_lineage_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # index, index_dev (a device int32, or null to read index), is_bf16, stream
+    "st_lineage_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     # q, k, v, o, lse, kv_len, strides[24], batch, heads, tq, tk, head_dim,
     # causal, is_bf16, vec, stream
     "st_flash_fwd": [_P, _P, _P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -67,22 +67,35 @@ def flash_attention_reference(q, k, v, kv_lengths, *, causal: bool
     return torch.einsum("bhts,bhsd->bhtd", p.to(v.dtype), v)
 
 
-def flash_fwd_reference(q, k, v, kv_lengths, *, causal: bool
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the forward kernel: (o, lse) with the kernel's
-    normalisation (o = (p in v's dtype) @ v / l, l = Σ p in f32)."""
+def _fwd_stats(q, k, kv_lengths, causal: bool):
+    """The forward kernel's f32 softmax pieces: p = exp(s - m) on kept
+    pairs (0 elsewhere), the row max m and the row sum l."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * scale
     keep = _keep_mask(q.shape[2], k.shape[2], kv_lengths, causal)
     s = torch.where(keep, s, torch.full((), MASK_VALUE, device=s.device))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(keep, torch.exp(s - m), torch.zeros((), device=s.device))
-    l = p.sum(dim=-1, keepdim=True)
+    return p, m, p.sum(dim=-1, keepdim=True)
+
+
+def flash_fwd_reference(q, k, v, kv_lengths, *, causal: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel: (o, lse) with the kernel's
+    normalisation (o = (p in v's dtype) @ v / l, l = Σ p in f32)."""
+    p, m, l = _fwd_stats(q, k, kv_lengths, causal)
     acc = torch.einsum("bhts,bhsd->bhtd", p.to(v.dtype).float(), v.float())
     l_inv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
     o = (acc * l_inv).to(q.dtype)
     lse = (m + torch.log(torch.clamp(l, min=1e-37)))[..., 0]
     return o, lse
+
+
+def flash_lse_reference(q, k, kv_lengths, *, causal: bool) -> torch.Tensor:
+    """The forward kernel's lse [B, H, T] (f32) alone, as
+    ``flash_fwd_reference`` computes it."""
+    _, m, l = _fwd_stats(q, k, kv_lengths, causal)
+    return (m + torch.log(torch.clamp(l, min=1e-37)))[..., 0]
 
 
 def _probs(q, k, lse, kv_lengths, causal):

@@ -4,6 +4,11 @@ A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 PyTorch version of the same function. There is no fallback: a kernel that
 fails to build or launch raises. Each kernel wrapper counts its launches;
 ``launch_counts`` reads them and ``reset_launch_counts`` zeroes them.
+
+The serving kernels (beam prune, lineage attention, the flash forward)
+are reached through their ``torch.library`` custom ops
+(``kernels/custom_ops.py``), whose CUDA and CPU implementations are that
+same pair, so that ``torch.export`` traces through them.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..ops import masks
-from . import beam_prune, flash_attention as flash, fused_adam as adam
+from . import beam_prune, custom_ops, flash_attention as flash, fused_adam as adam
 from . import int8_ffn as ffn8, int8_matmul as mm8
 from . import lineage_attention as lineage, stft_mel
 
@@ -47,18 +52,19 @@ def log_mel(waveform: torch.Tensor, cfg, n_frames: int) -> torch.Tensor:
 
 
 def beam_candidate_topk(logits, alive_scores, *, k2, pad_id=0, sos_id=1):
-    """Candidate scoring + top-k2 of one beam step (kernels/beam_prune.py)."""
-    fn = (beam_prune.candidate_topk_cuda if _on_cuda(logits)
-          else beam_prune.candidate_topk_reference)
-    return fn(logits, alive_scores, k2=k2, pad_id=pad_id, sos_id=sos_id)
+    """Candidate scoring + top-k2 of one beam step (kernels/beam_prune.py),
+    the op ``st_port::beam_candidate_topk``."""
+    return custom_ops.beam_candidate_topk(logits, alive_scores, k2, pad_id, sos_id)
 
 
 def lineage_attention(q_new, self_k, self_v, lineage_table, index, beam_width):
     """Beam self-attention over the unpermuted KV cache
-    (kernels/lineage_attention.py)."""
-    fn = (lineage.lineage_attention_cuda if _on_cuda(self_k)
-          else lineage.lineage_attention_reference)
-    return fn(q_new, self_k, self_v, lineage_table, index, beam_width)
+    (kernels/lineage_attention.py), the op ``st_port::lineage_attention``.
+    ``index`` is an int or a 0-d int32 tensor (a traced loop's step)."""
+    if not isinstance(index, torch.Tensor):
+        index = torch.tensor(index, dtype=torch.int32)
+    return custom_ops.lineage_attention(q_new, self_k, self_v, lineage_table, index,
+                                        int(beam_width))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -68,10 +74,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     generator: Optional[torch.Generator] = None,
                     remat: bool = False, dropout_shard=None) -> torch.Tensor:
     """[B, T, H, D] x [B, S, H, D] -> [B, T, H, D] attention with ragged key
-    lengths (kernels/flash_attention.py): the autograd Function over the
-    three kernels for CUDA tensors, the plain version with torch autograd
-    for CPU tensors. These keep flash semantics: keys masked by length (and
-    causally), query rows not masked.
+    lengths (kernels/flash_attention.py). Where a gradient will be taken,
+    the autograd Function over the three kernels for CUDA tensors and the
+    plain version with torch autograd for CPU tensors; where none will
+    (``torch.no_grad()``, or no input requires one), the forward op
+    ``flash_fwd`` alone, which ``torch.export`` traces. These keep flash
+    semantics: keys masked by length (and causally), query rows not masked.
 
     With attention dropout active (``dropout_rate > 0 and not
     deterministic``, JAX's condition at ``kernels/interface.py:49``) the
@@ -95,7 +103,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             return remat_call(core, q, k, v, generator=generator)
         return core(q, k, v, generator=generator)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))     # [B, H, T, D] views
-    if _on_cuda(q):
+    if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)):
+        out = flash_fwd(qt, kt, vt, kv_lengths, causal=causal)[0]
+    elif _on_cuda(q):
         out = flash.FlashAttention.apply(qt, kt, vt, kv_lengths, causal)
     else:
         out = flash.flash_attention_reference(qt, kt, vt, kv_lengths, causal=causal)
@@ -124,9 +135,9 @@ def flash_attention_stats(q, k, v, kv_lengths, *, causal: bool = False):
 
 
 def flash_fwd(q, k, v, kv_lengths, *, causal: bool):
-    """(o, lse) of [B, H, T, D] inputs (the forward kernel, B-4)."""
-    fn = flash.flash_fwd_cuda if _on_cuda(q) else flash.flash_fwd_reference
-    return fn(q, k, v, kv_lengths, causal=causal)
+    """(o, lse) of [B, H, T, D] inputs (the forward kernel, B-4), the op
+    ``st_port::flash_fwd``."""
+    return custom_ops.flash_fwd(q, k, v, kv_lengths, bool(causal))
 
 
 def flash_bwd_dkv(q, k, v, do, lse, di, kv_lengths, *, causal: bool):

@@ -13,8 +13,10 @@ over a KV cache. Cache layout per layer, for a step batch of B·K rows:
 and, with the tied output projection, ``cache["logits"]["table_f32"]``.
 For int8 serving (``ops/quantize.decode_model``) ``Decoder.use_int8`` swaps
 the dense layers for ``Int8Linear`` and the embedding for ``Int8Embedding``.
-The self cache is never reordered by the beam search: self-attention reads
-it through the lineage table (``kernels/interface.lineage_attention``).
+By default the beam search never reorders the self cache: self-attention
+reads it through the lineage table (``kernels/interface.lineage_attention``);
+with ``use_lineage=False`` it gathers the cache by beam and attends in
+plain PyTorch.
 With ``model.remat`` each teacher-forced layer runs under
 ``ops/remat.remat_module`` while gradients are taken (JAX
 ``decoder.py:268-272``).
@@ -44,7 +46,7 @@ from ..ops.remat import remat_module
 from ..parallel.tp import (column_linear, copy_to_model, gather_from_model,
                            local_slice, reduce_from_model)
 from .modules import (FeedForward, Int8Embedding, Int8Linear, LayerNorm,
-                      MultiHeadAttention, PositionalEncoding)
+                      MultiHeadAttention, PositionalEncoding, dot_product_attention)
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
@@ -114,17 +116,33 @@ class DecoderLayer(nn.Module):
 
     def decode_step(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                     index: int, cross_bias: torch.Tensor, beam_width: int,
-                    lineage: torch.Tensor) -> torch.Tensor:
+                    lineage: Optional[torch.Tensor]) -> torch.Tensor:
         """x [B·K, 1, d] at position ``index``; writes this position's k/v
-        into ``cache`` in place (saves a copy of the cache per step)."""
+        into ``cache`` in place (saves a copy of the cache per step), or,
+        with a 0-d tensor ``index`` (a step traced inside a ``while_loop``,
+        which may not mutate its carry), puts new self K/V tensors in ``cache``.
+        Self-attention reads the unpermuted cache through ``lineage``, or,
+        with ``lineage=None`` (beam search's ``use_lineage=False``, whose
+        cache is gathered by beam every step), attends over the cache
+        positions <= ``index`` in plain PyTorch, as JAX's XLA path does."""
 
         def self_attend(h):
             q_new, k_new, v_new = self.self_attn.project_qkv(h)   # [B·K,1,H,D]
-            cache["self_k"][:, index] = k_new[:, 0]
-            cache["self_v"][:, index] = v_new[:, 0]
-            out = interface.lineage_attention(
-                q_new, cache["self_k"], cache["self_v"], lineage, index,
-                beam_width)
+            if isinstance(index, torch.Tensor):   # a traced loop may not write its carry
+                pos = index.reshape(1).long()
+                cache["self_k"] = cache["self_k"].index_copy(1, pos, k_new)
+                cache["self_v"] = cache["self_v"].index_copy(1, pos, v_new)
+            else:
+                cache["self_k"][:, index] = k_new[:, 0]
+                cache["self_v"][:, index] = v_new[:, 0]
+            if lineage is None:   # a beam-gathered cache: positions <= index
+                pos_ok = torch.arange(cache["self_k"].shape[1], device=h.device) <= index
+                out = dot_product_attention(q_new, cache["self_k"], cache["self_v"],
+                                            mask_ops.mask_to_bias(pos_ok))
+            else:
+                out = interface.lineage_attention(
+                    q_new, cache["self_k"], cache["self_v"], lineage, index,
+                    beam_width)
             return self.self_attn.project_out(out)
 
         def cross_attend(h):
@@ -212,7 +230,7 @@ class Decoder(nn.Module):
 
     def _embed_scaled(self, tokens: torch.Tensor) -> torch.Tensor:
         emb = gather_from_model(self.embed(tokens), self.mesh)
-        scale = torch.tensor(self.d_model ** 0.5, dtype=emb.dtype, device=emb.device)
+        scale = torch.full((), self.d_model ** 0.5, dtype=emb.dtype, device=emb.device)
         return emb * scale
 
     def forward(self, targets_in, tgt_lens, memory, mem_lens, *,
@@ -246,16 +264,21 @@ class Decoder(nn.Module):
             cache["logits"] = {"table_f32": self._table().float()}
         return cache
 
-    def decode_step(self, tokens: torch.Tensor, index: int, cache: Cache,
+    def decode_step(self, tokens: torch.Tensor, index, cache: Cache,
                     mem_lens: torch.Tensor, beam_width: int,
-                    lineage: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
-        """One step. Returns (logits [B·K, V] f32, the cache updated in place).
+                    lineage: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
+        """One step at position ``index`` (an int, or a 0-d int32 tensor in a
+        traced loop). Returns (logits [B·K, V] f32, the updated cache).
 
         ``lineage`` [B, K, max_len] int32 names the cache lane that holds
-        beam k's step-j entry."""
+        beam k's step-j entry; ``None`` for a cache gathered by beam
+        (``DecoderLayer.decode_step``)."""
         s = cache["layer_0"]["cross_k"].shape[2]
         x = self._embed_scaled(tokens[:, None])                # [B·K,1,d]
-        x = x + self.pos_enc.pe[index:index + 1][None].to(x.dtype)
+        pe = self.pos_enc.pe
+        row = (pe.index_select(0, index.reshape(1).long())
+               if isinstance(index, torch.Tensor) else pe[index:index + 1])
+        x = x + row[None].to(x.dtype)
         cross_bias = mask_ops.mask_to_bias(
             mask_ops.padding_attention_mask(1, mem_lens, s))
         for i, layer in enumerate(self.layers):
