@@ -69,7 +69,15 @@ Phases (any failure exits non-zero before the final line):
      compared; its steps/s against the bare step), then ``load_recognizer``
      and ``decode_manifest`` of the FLAC manifest at beam 5, greedy (from
      ``best``) and int8, with exact launches per step, batch and dev batch;
-     and the drive recipe (``drive_recipe``): ``prepare_cli``,
+     then the input pipelines on a FLAC corpus (``pipeline_path``): the
+     ``base`` preset's ``Trainer`` at batch 32 with ``data.pipeline``
+     "python" and "grain" (host batches hashed equal, losses, parameters
+     and launches; a grain run stopped and resumed on the plan's batches),
+     the native FLAC decoder bit-equal to the pure-Python one and to the
+     PCM written, each route's decode rate, the step walls of both
+     pipelines (2, 4 and 8 workers) against the bare step, and
+     ``decode_manifest`` at beam 5 with its native CER equal to the plain
+     one; and the drive recipe (``drive_recipe``): ``prepare_cli``,
      ``train_cli`` (straight, and halfway then ``--resume``) and
      ``recognize_cli`` as child processes, ending in ``"cer": 0.0``;
   8. the parallel path (``parallel_path``): one NCCL rank per card; the
@@ -80,7 +88,10 @@ Phases (any failure exits non-zero before the final line):
      ``decode_manifest(distributed=True)``, with exact launches; the
      ring route of the flash kernels is checked at the ``sharded``
      encoder shape by ``check_ring_blocks``;
-  9. one JSON line per kernel set, then ``{"ok": true, "device": ...}``.
+  9. one JSON line per kernel set, then ``{"ok": true, "device": ...}``;
+     before it ends, whatever phase failed, the run stops the processes it
+     started that would outlive it (``stop_started_processes``) and fails
+     if one of them was not a multiprocessing helper.
 ``--phases`` runs a subset (the kernel checks need no main path); with no
 arguments every phase runs. Imports nothing of JAX or of the JAX package.
 """
@@ -105,6 +116,66 @@ PKG = "speech_tranformer_pytorch_tpu_torch"
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _descendants() -> list:
+    """``(pid, state, command line)`` of every process below this one, read
+    from ``/proc``."""
+    parent, info = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:   # ended while being read
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()   # after "pid (comm) "
+        parent[int(d)], info[int(d)] = int(fields[1]), (fields[0], cmd)
+    found, frontier = [], [os.getpid()]
+    while frontier:
+        top = frontier.pop()
+        below = [c for c, p in parent.items() if p == top]
+        frontier += below
+        found += [(c, *info[c]) for c in below]
+    return found
+
+
+def stop_started_processes() -> list:
+    """Ends every process this run started that is still there, and waits
+    for it. multiprocessing's fork server (the ``grain`` pipeline's workers
+    come from it) and its resource tracker live until they read the end of
+    a pipe from this process, so left alone they would end only after it;
+    they are stopped here through their own stop methods. Any other live
+    process below this one, a pipeline worker too, is a leak: it is
+    terminated (killed after 10 s) and returned as ``(pid, command line)``."""
+    import multiprocessing.forkserver as forkserver
+    import multiprocessing.resource_tracker as resource_tracker
+    import signal
+
+    helpers = (forkserver._forkserver._forkserver_pid, resource_tracker._resource_tracker._pid)
+    live = lambda: {pid: cmd for pid, state, cmd in _descendants()
+                    if state != "Z" and pid not in helpers}
+    leaked = sorted(live().items())
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in live().keys() & dict(leaked).keys():
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + 10.0
+        while live().keys() & dict(leaked).keys() and time.monotonic() < deadline:
+            time.sleep(0.1)
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+    for pid, _, _ in _descendants():   # reap this process's ended children
+        try:
+            os.waitpid(pid, os.WNOHANG)
+        except ChildProcessError:
+            pass
+    return leaked
 
 
 def bound(nbytes: float, flops: float, peak: float = H100_F32_FLOP_PER_S):
@@ -1951,13 +2022,17 @@ def _count_dev_eval(tr, total):
 
 
 def _trainer_run(torch, dev, cfg, work, paths, max_steps, total, resume=False,
-                 save=True, dev_manifest=None, mesh="auto"):
+                 save=True, dev_manifest=None, mesh="auto", hashes=None):
     """A ``Trainer`` run to ``max_steps`` whose step function checks each
     step's exact launches (adding them to ``total``); returns the trainer
     and its steps per second from the first step's start to the last step's
     end (the device synchronized only after the last step). ``save=False``
     skips its checkpoint writes, so the time is the loop's alone. With
-    ``dev_manifest`` the dev evaluations run too (``_count_dev_eval``)."""
+    ``dev_manifest`` the dev evaluations run too (``_count_dev_eval``).
+    ``tr.step_starts`` holds the host clock at each step's start (from the
+    train call's start). With a list ``hashes`` each host batch the train
+    pipeline yields is hashed into it (``_batch_hash``) as it is made,
+    before the ``Trainer`` pins and copies it."""
     from speech_tranformer_pytorch_tpu_torch.kernels import interface
     from speech_tranformer_pytorch_tpu_torch.runner import Trainer
 
@@ -1965,11 +2040,26 @@ def _trainer_run(torch, dev, cfg, work, paths, max_steps, total, resume=False,
                  dev_manifest=dev_manifest, resume=resume, device=dev, mesh=mesh)
     if dev_manifest:
         _count_dev_eval(tr, total)
+    if hashes is not None:
+        epoch_of = tr.batcher.epoch
+
+        def hashed(*args, **kwargs):
+            it = epoch_of(*args, **kwargs)
+            try:
+                for abatch in it:
+                    hashes.append(_batch_hash(abatch))
+                    yield abatch
+            finally:
+                it.close()
+
+        tr.batcher.epoch = hashed
     inner, clock = tr.step_fn, {}
+    tr.step_starts = starts = []
     want = step_launches(cfg, master=cfg.train.master_weights)
 
     def step(state, abatch, seed):
-        clock.setdefault("t0", time.perf_counter())
+        starts.append(time.perf_counter())
+        clock.setdefault("t0", starts[-1])
         before = interface.launch_counts()
         state, m = inner(state, abatch, seed)
         delta = _launch_delta(before, interface.launch_counts())
@@ -1986,7 +2076,9 @@ def _trainer_run(torch, dev, cfg, work, paths, max_steps, total, resume=False,
     if not save:
         tr.ckpt.save = lambda *a, **kw: False
     first = tr.state.step
+    starts.append(time.perf_counter())
     tr.train(max_steps=max_steps)
+    starts.append(clock["t1"])
     return tr, (max_steps - first) / (clock["t1"] - clock["t0"])
 
 
@@ -2174,6 +2266,284 @@ def manifest_path(torch, dev):
             del rec
     emit({"manifest_path": report})
     return total
+
+
+# The input pipelines on a FLAC corpus (``pipeline_path``).
+
+PIPELINE_FILES, PIPELINE_REPEATS = 64, 14    # unique FLAC files; manifest entries of each
+PIPELINE_STEPS, PIPELINE_STOP = 8, 4          # pipelines compared; the resumed run's stop
+PIPELINE_WALL_STEPS = 24                      # steps of each timed run
+PIPELINE_WORKERS = (2, 4, 8)                 # the JAX default, to the card host's 8 cores
+PIPELINE_PY_DECODES = 4                      # files decoded by the pure-Python decoder
+PIPELINE_DEV = 8                             # files of the dev manifest decode_manifest serves
+
+
+def _batch_hash(abatch) -> str:
+    """sha256 over a host ``AudioBatch``'s arrays (dtype, shape and bytes)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in FIELDS:
+        x = getattr(abatch, f).numpy()
+        h.update(f"{f}{x.dtype}{x.shape}".encode())
+        h.update(x.tobytes())
+    return h.hexdigest()
+
+
+def _write_flac_file(args):
+    """One corpus file (a process pool's task): write, then return the PCM
+    the file must decode to."""
+    import numpy as np
+
+    from speech_tranformer_pytorch_tpu_torch.data.flac import write_flac
+
+    path, pcm = args
+    write_flac(path, pcm.astype(np.int32), 16000)
+    return path
+
+
+def _write_flac_corpus(root, vocab_size):
+    """``PIPELINE_FILES`` seeded int16 utterances of 8-12 s as FLAC files,
+    written by a process pool; a train manifest that lists each file
+    ``PIPELINE_REPEATS`` times with tokens of its own (every entry is read
+    and decoded), and a dev manifest of the first ``PIPELINE_DEV`` files.
+    Returns (manifest paths, {path: PCM})."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from speech_tranformer_pytorch_tpu_torch.data.prepare import write_manifest
+    from speech_tranformer_pytorch_tpu_torch.data.synthetic import make_utterances
+
+    audio, lens = make_utterances(PIPELINE_FILES, min_seconds=8.0, max_seconds=12.0, seed=5)
+    pcm = {f"{root}/p{i:02d}.flac": audio[i, :n].copy() for i, n in enumerate(lens)}
+    with ProcessPoolExecutor(min(os.cpu_count() or 1, 8),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        list(pool.map(_write_flac_file, pcm.items()))
+    rng = np.random.default_rng(6)
+    entry = lambda uid, path: {
+        "utt_id": uid, "audio": path, "num_samples": len(pcm[path]), "sample_rate": 16000,
+        "text": "", "tokens": rng.integers(4, vocab_size, size=int(rng.integers(10, 31))).tolist()}
+    files = sorted(pcm)
+    manifests = {"train": [entry(f"r{r}_{i:02d}", p) for r in range(PIPELINE_REPEATS)
+                           for i, p in enumerate(files)],
+                 "dev": [entry(f"d{i:02d}", p) for i, p in enumerate(files[:PIPELINE_DEV])]}
+    paths = {}
+    for split, entries in manifests.items():
+        paths[split] = f"{root}/{split}.jsonl"
+        write_manifest(paths[split], entries)
+    return paths, pcm
+
+
+def _decode_rates(pcm):
+    """Native decode of every file (equal to its PCM), the pure-Python
+    decoder on the first ``PIPELINE_PY_DECODES`` (bit-equal to native);
+    each route's median ms per audio second."""
+    import numpy as np
+
+    from speech_tranformer_pytorch_tpu_torch.data.flac import decode_flac
+
+    rates = {"native": [], "python": []}
+    for i, (path, want) in enumerate(sorted(pcm.items())):
+        t0 = time.perf_counter()
+        got, rate, bps = decode_flac(path)
+        rates["native"].append((time.perf_counter() - t0) * 1e3 / (len(want) / 16000))
+        if not ((rate, bps) == (16000, 16) and np.array_equal(got[:, 0], want)):
+            raise AssertionError(f"{path}: native decode differs from the PCM written")
+        if i < PIPELINE_PY_DECODES:
+            t0 = time.perf_counter()
+            plain = decode_flac(path, force_python=True)
+            rates["python"].append((time.perf_counter() - t0) * 1e3 / (len(want) / 16000))
+            if not (np.array_equal(plain[0], got) and plain[1:] == (rate, bps)):
+                raise AssertionError(f"{path}: native decode differs from force_python")
+    return {k: {"median_ms_per_audio_s": statistics.median(v), "files": len(v)}
+            for k, v in rates.items()}
+
+
+def _step_walls(starts, workers: int = 0):
+    """From ``step_starts``: seconds to the first step, the median step
+    wall, and that median over the steps after each of ``workers`` workers
+    has delivered its first batch (in plan order, batch i comes from worker
+    i mod ``workers``, so the first ``workers`` steps wait on start-ups)."""
+    walls = [b - a for a, b in zip(starts[1:-1], starts[2:])]
+    return {"first_step_after_s": starts[1] - starts[0],
+            "median_step_s": statistics.median(walls),
+            "steady_median_step_s": statistics.median(walls[workers:]),
+            "steps": len(walls)}
+
+
+def _pipeline_cer(torch, dev, cfg, paths, tmp, total):
+    """``load_recognizer`` + ``decode_manifest`` of the FLAC dev manifest at
+    beam 5 with exact launches per batch; its ``cer`` (native) equals
+    ``cer(force_python=True)`` over the hypotheses it wrote."""
+    from speech_tranformer_pytorch_tpu_torch.data.prepare import read_manifest
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.ops.metrics import cer
+    from speech_tranformer_pytorch_tpu_torch.recognize import load_recognizer
+
+    rec = load_recognizer(cfg, f"{tmp}/grain/checkpoints", device=dev)
+    inner, steps = rec.decode_batch, []
+
+    def counted(audio, lens, *, beam_size, max_len, alpha):
+        before = interface.launch_counts()
+        hyps = inner(audio, lens, beam_size=beam_size, max_len=max_len, alpha=alpha)
+        delta = _launch_delta(before, interface.launch_counts())
+        want = expected_serve_launches(cfg, rec.last_steps, False, beam_size)
+        if rec.last_steps <= 0 or delta != want:
+            raise AssertionError(f"pipeline decode: launches {delta}, expected {want}")
+        _add(total, delta)
+        steps.append(rec.last_steps)
+        return hyps
+
+    rec.decode_batch = counted
+    out = f"{tmp}/dev_hyps.jsonl"
+    scores = rec.decode_manifest(paths["dev"], beam_size=5, batch_size=4, out_path=out)
+    with open(out) as f:
+        hyps = {r["utt_id"]: r["tokens"] for r in map(json.loads, f)}
+    refs = {e["utt_id"]: e["tokens"] for e in read_manifest(paths["dev"])}
+    plain = cer([refs[u] for u in sorted(refs)], [hyps[u] for u in sorted(refs)],
+                force_python=True)
+    if not (len(hyps) == PIPELINE_DEV and plain["cer"] == scores["cer"]
+            and plain["errors"] == scores["errors"]):
+        raise AssertionError(f"pipeline decode: cer {scores} against plain {plain}")
+    return {"cer": scores["cer"], "cer_force_python": plain["cer"],
+            "errors": scores["errors"], "rtf": scores["rtf"], "batch_decode_steps": steps}
+
+
+def pipeline_path(torch, dev):
+    """The ``base`` preset's ``Trainer`` (full width and depth, batch 32) on
+    a FLAC corpus of 8-12 s utterances with both input pipelines: native
+    FLAC decoding against the pure-Python decoder and the PCM written;
+    ``data.pipeline="grain"`` at 2 workers against ``"python"`` over
+    ``PIPELINE_STEPS`` steps from one init (each step's host batch hashed
+    equal, losses and parameters within 1e-5, exact launches a step); the
+    grain run stopped at ``PIPELINE_STOP`` and resumed on the plan's
+    batches; the median step wall with each pipeline (and 8 workers) over
+    ``PIPELINE_WALL_STEPS`` steps against the bare step on one
+    device-resident batch; then
+    ``decode_manifest`` of a FLAC dev manifest at beam 5, its native CER
+    equal to the plain one. Native calls are counted."""
+    import tempfile
+
+    from speech_tranformer_pytorch_tpu_torch import native
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.data.pipeline import make_audio_train_step
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.train import create_train_state
+
+    card = smi_line()
+    native.reset_call_counts()
+    total, report = {k: 0 for k in interface.launch_counts()}, {}
+    base = get_config("base", **{"train.batch_size": 32, "train.num_epochs": 1,
+                                 "train.log_every": 1, "data.num_workers": 2,
+                                 "train.checkpoint_every_steps": 100})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths, pcm = _write_flac_corpus(tmp, base.model.vocab_size)
+        report["corpus"] = {"files": len(pcm), "write_s": time.perf_counter() - t0,
+                            "audio_s": sum(len(x) for x in pcm.values()) / 16000,
+                            "train_entries": PIPELINE_FILES * PIPELINE_REPEATS}
+        report["decode"] = _decode_rates(pcm)
+        n_batches = len(_train_batcher(base, paths).plan(0))
+        if n_batches < PIPELINE_WALL_STEPS:
+            raise AssertionError(f"pipeline_path: epoch 0 plans {n_batches} batches, "
+                                 f"fewer than {PIPELINE_WALL_STEPS} steps")
+        # Straight runs of both pipelines, then grain stopped and resumed.
+        runs, hashes = {}, {}
+        for name in ("python", "grain"):
+            cfg = base.replace(data=base.data.replace(pipeline=name))
+            hashes[name] = []
+            runs[name], _ = _trainer_run(torch, dev, cfg, f"{tmp}/{name}", paths,
+                                         PIPELINE_STEPS, total, hashes=hashes[name])
+        grain = base.replace(data=base.data.replace(pipeline="grain"))
+        resumed_hashes = []
+        _trainer_run(torch, dev, grain, f"{tmp}/resumed", paths, PIPELINE_STOP, total)
+        resumed, _ = _trainer_run(torch, dev, grain, f"{tmp}/resumed", paths,
+                                  PIPELINE_STEPS, total, resume=True, hashes=resumed_hashes)
+        losses = {}
+        for name in ("python", "grain"):
+            with open(f"{tmp}/{name}/train_metrics.jsonl") as f:
+                losses[name] = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+        params = _leaf_diffs(torch, runs["python"].state.model.state_dict(),
+                             runs["grain"].state.model.state_dict())
+        resumed_params = _leaf_diffs(torch, runs["grain"].state.model.state_dict(),
+                                     resumed.state.model.state_dict())
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["grain"], losses["python"]))
+        report["pipelines"] = {
+            "epoch_batches": n_batches, "steps": PIPELINE_STEPS,
+            "batches_equal": hashes["grain"][:PIPELINE_STEPS] == hashes["python"][:PIPELINE_STEPS],
+            "losses_python": losses["python"], "losses_grain": losses["grain"],
+            "loss_max_rel_diff": loss_rel,
+            "param_worst_rel_diff": max(r for _, r in params.values()),
+            "resume_start": [resumed.start_epoch, resumed.start_batch],
+            "resume_batches_equal": (resumed_hashes[:PIPELINE_STEPS - PIPELINE_STOP]
+                                     == hashes["grain"][PIPELINE_STOP:PIPELINE_STEPS]),
+            "resume_param_worst_rel_diff": max(r for _, r in resumed_params.values()),
+            "launches_per_step": step_launches(base, master=False)}
+        p = report["pipelines"]
+        if not (p["batches_equal"]
+                and len(hashes["python"]) >= PIPELINE_STEPS
+                and len(losses["python"]) == len(losses["grain"]) == PIPELINE_STEPS
+                and loss_rel <= 1e-5 and p["param_worst_rel_diff"] <= 1e-5
+                and p["resume_start"] == [0, PIPELINE_STOP] and p["resume_batches_equal"]
+                and p["resume_param_worst_rel_diff"] <= 1e-5):
+            raise AssertionError(f"pipeline_path: {p}")
+        del runs, resumed
+        # Walls: each pipeline without logging or saves, then the bare step.
+        quiet = base.replace(train=base.train.replace(log_every=100))
+        walls = {}
+        for name, workers in (("python", 0), *(("grain", w) for w in PIPELINE_WORKERS)):
+            cfg = quiet.replace(data=quiet.data.replace(pipeline=name, num_workers=workers))
+            tag = name if name == "python" else f"grain_{workers}_workers"
+            tr, sps = _trainer_run(torch, dev, cfg, f"{tmp}/wall_{tag}", paths,
+                                   PIPELINE_WALL_STEPS, total, save=False)
+            walls[f"trainer_{tag}"] = {**_step_walls(tr.step_starts, workers),
+                                       "steps_per_s": sps}
+            del tr
+        abatch = _first_batch(quiet, paths).to(dev)
+        state = create_train_state(quiet, device=dev, seed=quiet.train.seed)
+        bare, starts = make_audio_train_step(quiet), [time.perf_counter()]
+        for _ in range(PIPELINE_WALL_STEPS):
+            starts.append(time.perf_counter())
+            before = interface.launch_counts()
+            state, _ = bare(state, abatch, quiet.train.seed + 1)
+            _add(total, _launch_delta(before, interface.launch_counts()))
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        walls["bare_step"] = _step_walls(starts)
+        del state, abatch
+        report["walls"] = walls
+        report["dev_decode"] = _pipeline_cer(torch, dev, base, paths, tmp, total)
+    report["native_calls"] = native.call_counts()
+    if not (report["native_calls"]["flac_decode"] > 0
+            and report["native_calls"]["edit_distance_corpus_i32"] > 0):
+        raise AssertionError(f"native libraries not called: {report['native_calls']}")
+    emit({"pipeline_path": report})
+    for what, wall in report["walls"].items():
+        print(card, flush=True)
+        emit({"pipeline_wall": {what: wall, "card": card}})
+    for route, rate in report["decode"].items():
+        emit({"flac_decode_rate": {route: rate, "card": card}})
+    return total
+
+
+def _train_batcher(cfg, paths):
+    """The ``Trainer``'s batcher of the train manifest (the Python pipeline)."""
+    from speech_tranformer_pytorch_tpu_torch.data.pipeline import BucketedBatcher, ManifestDataset
+
+    ds = ManifestDataset(paths["train"], cfg.data, cfg.features)
+    return BucketedBatcher(ds, batch_size=cfg.train.batch_size,
+                           bucket_boundaries=cfg.data.bucket_boundaries,
+                           target_len=min(cfg.data.max_target_len,
+                                          cfg.model.max_target_positions),
+                           seed=cfg.train.seed, drop_remainder=True,
+                           adaptive_target_len=cfg.data.adaptive_target_len)
+
+
+def _first_batch(cfg, paths):
+    """The first planned train batch of epoch 0 (host tensors)."""
+    return next(_train_batcher(cfg, paths).epoch(0))
 
 
 RECIPE_STEPS = 400
@@ -2637,8 +3007,8 @@ CHECKS = ("check_fbank", "check_beam_prune", "check_lineage", "check_flash",
           "check_ring_blocks", "check_adam", "check_int8_matmul", "check_int8_ffn")
 PHASES = CHECKS + ("main_path", "export_path", "card_vs_cpu", "int8_path",
                    "int8_card_vs_cpu", "train_path", "large_train_path",
-                   "train_card_vs_cpu", "overfit_anchor", "manifest_path", "drive_recipe",
-                   "parallel_path")
+                   "train_card_vs_cpu", "overfit_anchor", "manifest_path", "pipeline_path",
+                   "drive_recipe", "parallel_path")
 
 
 def main() -> int:
@@ -2682,8 +3052,8 @@ def main() -> int:
             emit({"phase_s": {name: time.perf_counter() - t0}})
     counts = {"serve": {}, "export": {}, "serve_int8": {}, "train": {}, "large": {},
               "large_master": {},
-              "large_trainer": {}, "librispeech": {}, "manifest": {}, "recipe": {},
-              "parallel": {}}
+              "large_trainer": {}, "librispeech": {}, "manifest": {}, "pipeline": {},
+              "recipe": {}, "parallel": {}}
     for path, int8 in (("serve", False), ("serve_int8", True)):
         name = "int8_path" if int8 else "main_path"
         if name in phases:
@@ -2707,8 +3077,8 @@ def main() -> int:
             t0 = time.perf_counter()
             globals()[name](torch, dev)
             emit({"phase_s": {name: time.perf_counter() - t0}})
-    for path, name in (("manifest", "manifest_path"), ("recipe", "drive_recipe"),
-                       ("parallel", "parallel_path")):
+    for path, name in (("manifest", "manifest_path"), ("pipeline", "pipeline_path"),
+                       ("recipe", "drive_recipe"), ("parallel", "parallel_path")):
         if name in phases:
             t0 = time.perf_counter()
             counts[path] = globals()[name](torch, dev)
@@ -2727,6 +3097,9 @@ def main() -> int:
             kernels[-1]["ring_route"] = ring[r["name"]]
     if len(phases) == len(PHASES) and any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel never ran on a main path: {kernels}")
+    leaked = stop_started_processes()
+    if leaked:
+        raise AssertionError(f"processes left running (now stopped): {leaked}")
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2735,4 +3108,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:   # also when a phase failed
+        stop_started_processes()
+    sys.exit(rc)

@@ -90,7 +90,7 @@ class ModelConfig(_Replace):
     attention_dropout_rate: float = 0.0
     input_dim: int = 80            # mel bins
     subsample_channels: int = 64   # conv2d-subsampling channel width
-    subsample_impl: str = "conv"   # the port implements 'conv'
+    subsample_impl: str = "conv"   # conv | im2col | phase: one conv in the port
     max_source_positions: int = 3000
     max_target_positions: int = 512
     share_embedding: bool = True   # tie decoder embed and output projection

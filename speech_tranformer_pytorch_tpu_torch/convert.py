@@ -222,3 +222,55 @@ def _as_numpy(tree):
     if isinstance(tree, dict):
         return {k: _as_numpy(v) for k, v in tree.items()}
     return np.asarray(tree)
+
+
+_NPZ_TREES = ("params", "mu", "nu", "master")
+
+
+def checkpoint_from_npz(path: str, cfg):
+    """A JAX ``Trainer`` checkpoint converted by ``convert_jax_checkpoint.py``
+    (``.npz``, numpy only) -> ``(step, utils.checkpoint.CheckpointState)``
+    for ``cfg`` (an ``ExperimentConfig``), through ``params_from_jax`` and
+    ``adam_state_from_jax``; each tree gets the dtype the JAX run kept it
+    in (the file holds bfloat16 leaves as float32 values, exactly).
+
+    The file has the flattened trees ``params/...``, ``mu/...``, ``nu/...``
+    and, with ``train.master_weights``, ``master/...``; the Adam ``count``;
+    ``step``, ``epoch``, ``batch_in_epoch``, ``best_dev_loss``,
+    ``best_dev_step``; ``config_hash``; ``dtype/<tree>`` for each tree. JAX's
+    PRNG key is not carried: the port's dropout and SpecAugment bits come
+    from (seed, step) alone."""
+    from types import SimpleNamespace
+
+    from .ops.fused_adam import AdamState
+    from .utils.checkpoint import CheckpointState
+
+    trees: dict = {g: {} for g in _NPZ_TREES}
+    with np.load(path, allow_pickle=False) as z:
+        meta = {k: z[k] for k in z.files if "/" not in k or k.startswith("dtype/")}
+        for k in z.files:
+            group, _, leaf = k.partition("/")
+            if group in trees and leaf:
+                node = trees[group]
+                *parents, name = leaf.split("/")
+                for key in parents:
+                    node = node.setdefault(key, {})
+                node[name] = z[k]
+
+    def cast(sd, group):
+        dt = getattr(torch, str(meta[f"dtype/{group}"]))
+        return {k: v.to(dt) for k, v in sd.items()}
+
+    master = trees["master"] or None
+    opt = adam_state_from_jax(SimpleNamespace(mu=trees["mu"], nu=trees["nu"],
+                                              count=meta["count"], master=master),
+                              cfg.model)
+    opt = AdamState(count=opt.count, mu=cast(opt.mu, "mu"), nu=cast(opt.nu, "nu"),
+                    master=None if master is None else cast(opt.master, "master"))
+    return int(meta["step"]), CheckpointState(
+        params=cast(params_from_jax(trees["params"], cfg.model), "params"), opt=opt,
+        epoch=int(meta["epoch"]),
+        batch_in_epoch=int(meta["batch_in_epoch"]),
+        config_hash=str(meta["config_hash"]),
+        best_dev_loss=float(meta["best_dev_loss"]),
+        best_dev_step=int(meta["best_dev_step"]))

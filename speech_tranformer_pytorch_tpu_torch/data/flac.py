@@ -1,14 +1,18 @@
-"""FLAC codec (counterpart of the JAX package's ``data/flac.py``), in pure
-Python: the LibriSpeech recipe reads its ``.flac`` files through it.
+"""FLAC codec (counterpart of the JAX package's ``data/flac.py``): the
+LibriSpeech recipe reads its ``.flac`` files through it.
 
 - ``decode_flac_py`` decodes the subset libFLAC-encoded speech corpora use:
   CONSTANT / VERBATIM / FIXED (orders 0-4) / LPC (orders 1-32) subframes,
   Rice and Rice2 partitioned residuals with the escape code, wasted-bits
   shifts, every block-size / sample-rate / sample-size header code, mono
   and all four stereo channel assignments, 8/16/24-bit depths, and the
-  header CRC-8 and frame CRC-16 checks. ``decode_flac`` reads a path or
-  bytes and decodes through it; the JAX package's optional native decoder
-  is not ported (ROADMAP queue A).
+  header CRC-8 and frame CRC-16 checks. It is the plain reference.
+- ``decode_flac`` reads a path or bytes and decodes them with the native
+  decoder ``native/flacdec.cc`` (built with the host compiler at first use;
+  a failed build raises), which decodes the same subset bit for bit.
+  ``force_python=True`` takes ``decode_flac_py`` instead. A stream whose
+  STREAMINFO gives no sample count goes to ``decode_flac_py``, as in the
+  JAX package: the native decoder needs it to size its output.
 - ``flac_info`` reads STREAMINFO only, so manifests record lengths without
   a decode.
 - ``write_flac`` encodes fixed-predictor and quantized-LPC subframes with
@@ -20,11 +24,14 @@ Bit-level formats follow the public FLAC format specification (RFC 9639).
 
 from __future__ import annotations
 
+import ctypes
 import os
 import struct
 from typing import List, Tuple
 
 import numpy as np
+
+from .. import native
 
 __all__ = ["decode_flac", "decode_flac_py", "write_flac", "flac_info",
            "FlacError"]
@@ -442,15 +449,40 @@ def flac_info(source) -> Tuple[int, int, int, int]:
     return total, rate, channels, bps
 
 
-def decode_flac(source) -> Tuple[np.ndarray, int, int]:
-    """Decode a FLAC file (path or bytes) with ``decode_flac_py``.
+def decode_flac(source, *, force_python: bool = False) -> Tuple[np.ndarray, int, int]:
+    """Decode a FLAC file (path or bytes) with the native decoder, or with
+    ``decode_flac_py`` when ``force_python`` is set.
 
     Returns ``(samples[int32, (n, channels)], sample_rate, bits_per_sample)``.
     """
     if isinstance(source, (str, os.PathLike)):
         with open(source, "rb") as f:
-            return decode_flac_py(f.read())
-    return decode_flac_py(bytes(source))
+            data = f.read()
+    else:
+        data = bytes(source)
+    if force_python:
+        return decode_flac_py(data)
+    if data[:4] != b"fLaC" or len(data) < 42:
+        raise FlacError("not a FLAC stream")
+    # STREAMINFO's sample count sizes the output buffer.
+    br = _BitReader(data, 8)
+    br.read(16); br.read(16); br.read(24); br.read(24); br.read(20)
+    channels = br.read(3) + 1
+    br.read(5)
+    total = br.read(36)
+    if total == 0:
+        return decode_flac_py(data)
+    lib = native.library("flacdec")
+    buf = np.empty(total * channels, np.int32)
+    arr = np.frombuffer(data, np.uint8)
+    rate, nchan, bps = ctypes.c_int32(0), ctypes.c_int32(0), ctypes.c_int32(0)
+    native.count("flac_decode")
+    n = lib.flac_decode(arr.ctypes.data_as(native.U8P), len(data),
+                        buf.ctypes.data_as(native.I32P), total,
+                        ctypes.byref(rate), ctypes.byref(nchan), ctypes.byref(bps))
+    if n < 0:
+        raise FlacError(f"native FLAC decode failed (code {n})")
+    return buf[:n * nchan.value].reshape(n, nchan.value).copy(), rate.value, bps.value
 
 
 # ---------------------------------------------------------------------------

@@ -194,37 +194,49 @@ class BucketedBatcher:
 
     def _make_batch(self, idxs: List[int], bucket: int, *, pad_to_batch: bool = False,
                     target_width: Optional[int] = None) -> AudioBatch:
-        fcfg = self.ds.fcfg
-        max_samples = _samples_for_frames(self.boundaries[bucket], fcfg)
-        bsz = self.bucket_batch_sizes[bucket] if pad_to_batch else len(idxs)
-        width = target_width or self.target_len
-        adt = np.int16 if self.ds.audio_dtype == "int16" else np.float32
-        audio = np.zeros((bsz, max_samples), adt)
-        slens = np.zeros((bsz,), np.int32)
-        tin = np.full((bsz, width), PAD, np.int32)
-        tout = np.full((bsz, width), PAD, np.int32)
-        tlens = np.zeros((bsz,), np.int32)
-        valid = np.zeros((bsz,), bool)
-        for row, idx in enumerate(idxs):
+        rows = []
+        for idx in idxs:
             e = self.ds.entries[idx]
-            samples, _ = read_audio(e["audio"], dtype=self.ds.audio_dtype)
-            n = min(len(samples), max_samples)
-            audio[row, :n] = samples[:n]
-            slens[row] = n
-            toks = e["tokens"][: width - 1]
-            tin[row, 0] = SOS
-            tin[row, 1:1 + len(toks)] = toks
-            tout[row, :len(toks)] = toks
-            tout[row, len(toks)] = EOS
-            tlens[row] = len(toks) + 1
-            valid[row] = True
-        for row in range(len(idxs), bsz):   # padding rows: one frame, <eos> only
-            slens[row] = fcfg.frame_length
-            tlens[row] = 1
-            tin[row, 0] = SOS
-            tout[row, 0] = EOS
-        return AudioBatch(*(torch.from_numpy(x)
-                            for x in (audio, slens, tin, tout, tlens, valid)))
+            rows.append((read_audio(e["audio"], dtype=self.ds.audio_dtype)[0], e["tokens"]))
+        return assemble_batch(
+            rows, max_samples=_samples_for_frames(self.boundaries[bucket], self.ds.fcfg),
+            batch_rows=self.bucket_batch_sizes[bucket] if pad_to_batch else len(idxs),
+            width=target_width or self.target_len,
+            frame_length=self.ds.fcfg.frame_length, audio_dtype=self.ds.audio_dtype)
+
+
+def assemble_batch(rows: Sequence[Tuple[np.ndarray, Sequence[int]]], *, max_samples: int,
+                   batch_rows: int, width: int, frame_length: int,
+                   audio_dtype: str) -> AudioBatch:
+    """One padded ``AudioBatch`` of CPU tensors from ``(samples, tokens)``
+    rows: audio cut to ``max_samples``, targets to ``width`` columns with
+    ``<sos>``/``<eos>``, and ``batch_rows - len(rows)`` padding rows (one
+    frame, ``<eos>`` only, ``valid=False``)."""
+    adt = np.int16 if audio_dtype == "int16" else np.float32
+    audio = np.zeros((batch_rows, max_samples), adt)
+    slens = np.zeros((batch_rows,), np.int32)
+    tin = np.full((batch_rows, width), PAD, np.int32)
+    tout = np.full((batch_rows, width), PAD, np.int32)
+    tlens = np.zeros((batch_rows,), np.int32)
+    valid = np.zeros((batch_rows,), bool)
+    for row, (samples, tokens) in enumerate(rows):
+        n = min(len(samples), max_samples)
+        audio[row, :n] = samples[:n]
+        slens[row] = n
+        toks = tokens[: width - 1]
+        tin[row, 0] = SOS
+        tin[row, 1:1 + len(toks)] = toks
+        tout[row, :len(toks)] = toks
+        tout[row, len(toks)] = EOS
+        tlens[row] = len(toks) + 1
+        valid[row] = True
+    for row in range(len(rows), batch_rows):   # padding rows: one frame, <eos> only
+        slens[row] = frame_length
+        tlens[row] = 1
+        tin[row, 0] = SOS
+        tout[row, 0] = EOS
+    return AudioBatch(*(torch.from_numpy(x)
+                        for x in (audio, slens, tin, tout, tlens, valid)))
 
 
 def make_preprocess_fn(feature_cfg: FeatureConfig,

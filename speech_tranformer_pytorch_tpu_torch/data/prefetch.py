@@ -2,7 +2,8 @@
 package's ``data/prefetch.py``): a bounded producer thread overlaps audio
 reads and padding with the device's work; an error in the producer is
 raised again in the consumer. Closing the consumer's generator stops the
-producer."""
+producer, which then closes the iterable's iterator (a generator's
+``finally`` runs, so a worker pool behind it shuts down)."""
 
 from __future__ import annotations
 
@@ -21,17 +22,23 @@ def prefetch(iterable: Iterable[T], *, buffer_size: int = 2) -> Iterator[T]:
     q: queue.Queue = queue.Queue(maxsize=buffer_size)
     err: list = []
     stop = threading.Event()
+    it = iter(iterable)
 
     def producer():
         try:
-            for item in iterable:
+            for item in it:
                 if stop.is_set():
                     return
                 q.put(item)
         except BaseException as e:  # raised again in the consumer
             err.append(e)
         finally:
-            q.put(_SENTINEL)
+            try:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
+            finally:
+                q.put(_SENTINEL)
 
     t = threading.Thread(target=producer, daemon=True)
     t.start()

@@ -87,7 +87,14 @@ def subsampled_lengths(frame_lens: torch.Tensor) -> torch.Tensor:
 class Conv2dSubsampling(nn.Module):
     """[B,T,F] fbank -> [B,T//4,d_model]: two 3×3/stride-2 VALID convs with
     ReLU over (time, freq), then a linear projection of the flattened
-    (freq, channel) axes — the JAX package's NHWC flatten order."""
+    (freq, channel) axes — the JAX package's NHWC flatten order.
+
+    It serves every ``model.subsample_impl``. The JAX package's ``'im2col'``
+    (``_PatchConv``: strided patches and one matmul) and ``'phase'``
+    (``_PhaseConv`` for the second conv: even/odd phases and one matmul)
+    were TPU layout experiments that compute this conv's function on the
+    same ``Conv_0``/``Conv_1`` parameters, so their checkpoints load here
+    unchanged and give the same outputs up to summation order."""
 
     def __init__(self, input_dim: int, d_model: int, channels: int):
         super().__init__()

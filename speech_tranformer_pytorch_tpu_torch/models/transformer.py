@@ -19,11 +19,9 @@ class SpeechTransformer(nn.Module):
         """``mesh`` (a ``parallel.mesh.Mesh``): the model rank's tensor-
         parallel shards (``parallel/sharding.shard_params`` makes its
         ``state_dict``), with ring attention for
-        ``attention_impl='ring'``."""
+        ``attention_impl='ring'``. Every ``model.subsample_impl`` builds the
+        same ``Conv2dSubsampling`` (see its docstring)."""
         super().__init__()
-        if cfg.subsample_impl != "conv":
-            raise ValueError(f"the port implements subsample_impl='conv', "
-                             f"not {cfg.subsample_impl!r}")
         if mesh is not None:
             tp = mesh.tp
             split = {"model.num_heads": cfg.num_heads, "model.d_ff": cfg.d_ff,

@@ -6,8 +6,11 @@ With a mesh (``parallel.mesh.Mesh``, one process per card) each data rank
 reads its stride of every globally planned batch, the steps are the
 sharded ones of ``parallel/sharding.py``, dev CER runs the sharded greedy
 decode, every rank computes the same log records and rank 0 alone writes
-them and the checkpoints (whole trees, in the single-device format). The
-grain pipeline raises (ROADMAP queue A).
+them and the checkpoints (whole trees, in the single-device format).
+``data.pipeline`` picks the train batches' reader, as in JAX: "python"
+reads them in the prefetch thread (``BucketedBatcher``), "grain" in a pool
+of ``data.num_workers`` worker processes (``data/grain_pipeline.py``); both
+give the same batches.
 
 The hot loop never waits on the device per step: the step count
 is a host ``int``, and the per-step metric tensors are read in one batch at
@@ -20,8 +23,10 @@ not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import functools
 import math
 import sys
 import time
@@ -33,6 +38,7 @@ import torch.distributed as dist
 from torch.func import functional_call
 
 from .config import ExperimentConfig
+from .data.grain_pipeline import GrainBucketedPipeline
 from .data.pipeline import (AudioBatch, BucketedBatcher, ManifestDataset,
                             make_audio_train_step, make_preprocess_fn)
 from .data.prefetch import prefetch
@@ -102,9 +108,6 @@ class Trainer:
         ``mesh``: "auto", a ``parallel.mesh.Mesh`` or None (``_resolve_mesh``);
         with a mesh the rank trains on ``mesh.device`` and
         ``train.batch_size`` is the global batch."""
-        if cfg.data.pipeline == "grain":
-            raise NotImplementedError("the grain pipeline is not ported yet "
-                                      "(ROADMAP queue A); set data.pipeline=python")
         self.cfg = cfg
         self.work_dir = work_dir
         self.mesh = mesh = _resolve_mesh(cfg, mesh, device)
@@ -128,7 +131,12 @@ class Trainer:
                 self.dev_ds = ds
         target_len = min(data.max_target_len, cfg.model.max_target_positions)
         per_rank = max(t.batch_size // n, 1)
-        self.batcher = BucketedBatcher(
+        if data.pipeline == "grain":
+            batcher_cls = functools.partial(GrainBucketedPipeline,
+                                            num_workers=data.num_workers)
+        else:
+            batcher_cls = BucketedBatcher
+        self.batcher = batcher_cls(
             self.train_ds, batch_size=per_rank,
             bucket_boundaries=data.bucket_boundaries, target_len=target_len,
             seed=t.seed, drop_remainder=True,
@@ -208,12 +216,16 @@ class Trainer:
         if self.device.type != "cuda":
             return prefetch(it)
 
-        def to_device(abatch: AudioBatch) -> AudioBatch:
-            with torch.cuda.stream(stream):
-                return AudioBatch(*(getattr(abatch, f.name).pin_memory().to(
-                    self.device, non_blocking=True) for f in dataclasses.fields(abatch)))
+        def on_device():
+            with contextlib.closing(it):     # a worker pool stops with its epoch
+                for abatch in it:
+                    with torch.cuda.stream(stream):
+                        moved = AudioBatch(*(getattr(abatch, f.name).pin_memory().to(
+                            self.device, non_blocking=True)
+                            for f in dataclasses.fields(abatch)))
+                    yield moved
 
-        return prefetch(map(to_device, it))
+        return prefetch(on_device())
 
     def train(self, *, max_steps: Optional[int] = None) -> TrainState:
         t = self.cfg.train

@@ -8,7 +8,10 @@ cast copy through ``torch.func.functional_call``; the cast's backward
 brings the gradients back to f32 for the optimizer. The optimizer is
 ``ops/fused_adam.FusedAdam`` whatever ``train.fused_optimizer`` says: one
 kernel launch over all leaves on a card, its plain version on the CPU
-(the two compute the optax chain's function). With ``train.master_weights``
+(the two compute the optax chain's function). That is a standing
+difference by design, recorded in ROADMAP section C and held against both
+JAX optimizers by ``tests/test_torch_train.py::test_f32_step_matches_jax``.
+With ``train.master_weights``
 (JAX ``train.py:244-267``) the model holds its parameters in
 ``model.dtype`` and the f32 master lives in ``AdamState.master``: no step
 casts the tree, the gradients stay in the compute dtype and the

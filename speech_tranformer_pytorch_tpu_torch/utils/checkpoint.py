@@ -151,3 +151,19 @@ class Checkpointer:
 
     def close(self) -> None:
         """Nothing is held open between calls."""
+
+
+def write_checkpoint(work_dir: str, step: int, ckpt: CheckpointState, cfg) -> str:
+    """Write ``ckpt`` as ``work_dir/checkpoints/step_<step>.pt`` with its
+    ``config_hash.txt``, and ``cfg`` (an ``ExperimentConfig``) as the run's
+    ``work_dir/config.json``, as ``train_cli`` writes it: a work dir that
+    ``Trainer(resume=True)``, ``load_recognizer`` and the CLIs take, for
+    example from ``convert.checkpoint_from_npz``. Returns the checkpoint's
+    path."""
+    ckpts = Checkpointer(os.path.join(work_dir, "checkpoints"))
+    if not ckpts.save(step, ckpt):
+        raise ValueError(f"{ckpts.directory} already holds step {ckpts.latest_step()} "
+                         f">= {step}")
+    with open(os.path.join(work_dir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    return ckpts._path(step)

@@ -4,7 +4,9 @@ Both packages start from the same flax init of the tiny preset (dropout 0,
 converted with ``convert.params_from_jax``) and the same zero optimizer
 state (``convert.adam_state_from_jax``), and take one step on the same
 ``AudioBatch`` of seeded int16 utterances: fbank + CMVN, teacher-forced
-forward, label-smoothed CE, backward, clip, Adam under Noam. float32
+forward, label-smoothed CE, backward, clip, Adam under Noam. The float32
+step is held against both JAX optimizers (``train.fused_optimizer``
+False, the optax chain, and True, ``FusedAdam``): the port has one. float32
 compute with float32 moments agrees at 1e-5 on loss, tokens and accuracy,
 1e-4 on the grad norm and on gradients and moments relative to each
 leaf's largest value (summation order; see ``_leafwise`` for the key
@@ -29,7 +31,7 @@ from speech_tranformer_pytorch_tpu.data.pipeline import (  # noqa: E402
 from speech_tranformer_pytorch_tpu.train import create_train_state as jax_create  # noqa: E402
 from speech_tranformer_pytorch_tpu_torch.config import get_config  # noqa: E402
 from speech_tranformer_pytorch_tpu_torch.convert import (  # noqa: E402
-    adam_state_from_jax, params_from_jax, params_to_jax)
+    _find_moments, adam_state_from_jax, params_from_jax, params_to_jax)
 from speech_tranformer_pytorch_tpu_torch.data.pipeline import (  # noqa: E402
     AudioBatch, make_audio_train_step, make_preprocess_fn)
 from speech_tranformer_pytorch_tpu_torch.data.synthetic import (  # noqa: E402
@@ -50,8 +52,9 @@ def _audio_batch():
                 target_lens=tlens, valid=np.ones(3, bool))
 
 
-def _run(dtype, moment_dtype):
-    over = dict(OVER, **{"model.dtype": dtype, "train.moment_dtype": moment_dtype})
+def _run(dtype, moment_dtype, fused_optimizer=False):
+    over = dict(OVER, **{"model.dtype": dtype, "train.moment_dtype": moment_dtype,
+                         "train.fused_optimizer": fused_optimizer})
     jcfg, cfg = jax_get_config("tiny", **over), get_config("tiny", **over)
     arrays = _audio_batch()
     jbatch = JaxAudioBatch(**{k: jnp.asarray(v) for k, v in arrays.items()})
@@ -70,9 +73,12 @@ def _run(dtype, moment_dtype):
                 params0=params0, batch=batch)
 
 
-@pytest.fixture(scope="module")
-def f32():
-    return _run("float32", "float32")
+@pytest.fixture(scope="module", params=[False, True], ids=["optax", "fused"])
+def f32(request):
+    """The JAX side with either of its optimizers (``train.fused_optimizer``:
+    the optax chain, JAX's default, or ``FusedAdam``); the port runs its one
+    fused Adam, the same function, against both (ROADMAP section C)."""
+    return _run("float32", "float32", fused_optimizer=request.param)
 
 
 def _leafwise(mine, theirs, cfg, rel, name):
@@ -95,14 +101,15 @@ def test_f32_step_matches_jax(f32):
     assert m["grad_norm"] == pytest.approx(jm["grad_norm"], rel=1e-4)
     # The JAX step's first moments are 0.1·(clip scale)·g: its gradients.
     scale = min(1.0, cfg.train.grad_clip_norm / jm["grad_norm"])
-    jmu = f32["jstate"].opt_state[1][0].mu
+    jmoments = _find_moments(f32["jstate"].opt_state)
+    jmu = jmoments.mu
     _leafwise({k: g * (0.1 * scale) for k, g in f32["grads"].items()}, jmu, cfg, 1e-4, "grad")
     _leafwise(f32["state"].opt.mu, jmu, cfg, 1e-4, "mu")
     # Moments cross back to the JAX tree layout exactly.
     mu = f32["state"].opt.mu
     back = params_from_jax(params_to_jax(mu, cfg.model), cfg.model)
     assert all(torch.equal(back[k], mu[k]) for k in mu)
-    _leafwise(f32["state"].opt.nu, f32["jstate"].opt_state[1][0].nu, cfg, 1e-4, "nu")
+    _leafwise(f32["state"].opt.nu, jmoments.nu, cfg, 1e-4, "nu")
     assert int(f32["state"].opt.count) == 1 and f32["state"].step == 1
     want = params_from_jax(jax.tree.map(np.asarray, f32["jstate"].params), cfg.model)
     for k, p in f32["state"].params.items():
@@ -140,9 +147,14 @@ def test_loss_falls_over_30_steps():
     batch = AudioBatch(**{k: torch.from_numpy(v) for k, v in _audio_batch().items()})
     step = make_audio_train_step(cfg)
     losses = []
-    for _ in range(30):
-        state, m = step(state, batch)
-        losses.append(float(m["loss"]))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)   # the suite's workers share the machine's cores
+    try:
+        for _ in range(30):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+    finally:
+        torch.set_num_threads(threads)
     assert all(np.isfinite(losses)) and losses[-1] < 0.6 * losses[0], losses
 
 
