@@ -340,15 +340,16 @@ def _prune_cases(torch):
 
 def device_kernels_per_call(torch, fn) -> int:
     """Device kernels one call of ``fn`` launches, from a profiler trace."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from speech_tranformer_pytorch_tpu_torch.utils.profiling import device_ops
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return len(device_ops(prof)[0])
 
 
 def check_beam_prune(torch, dev):
@@ -1310,19 +1311,17 @@ def _checked_steps(torch, step, state, batch, n, want, tag):
 
 def _profiled_step(torch, step, state, batch):
     """One step under torch.profiler: (state, device events, busy s, wall s)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from speech_tranformer_pytorch_tpu_torch.profile_decode import _busy_us
+    from speech_tranformer_pytorch_tpu_torch.utils.profiling import device_ops
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e6
-    return state, len(kernels), busy, wall
+    kernels, busy = device_ops(prof)
+    return state, len(kernels), busy / 1e6, wall
 
 
 def large_train_path(torch, dev):

@@ -18,6 +18,7 @@ import torch
 
 from ..config import FeatureConfig
 from ..device import DeviceLike, resolve_device
+from ..utils.profiling import named_scope
 
 LOG_EPS = 1.1920928955078125e-07  # float32 eps, Kaldi's log floor
 
@@ -128,14 +129,15 @@ def extract_features(
     here by 1/32768. ``feats`` is cast to ``cfg.output_dtype`` only after
     CMVN, whose statistics stay float32."""
     dev = resolve_device(device)
-    waveforms = torch.as_tensor(waveforms).to(dev)
-    sample_lengths = torch.as_tensor(sample_lengths).to(dev)
-    if waveforms.dtype == torch.int16:
-        waveforms = waveforms.float() * (1.0 / 32768.0)
-    feats = log_mel_spectrogram(waveforms.float(), cfg)
-    frame_lens = frame_lengths_from_sample_lengths(
-        sample_lengths, cfg.frame_length, cfg.frame_shift)
-    frame_lens = torch.clamp(frame_lens, max=feats.shape[-2])
-    if cfg.cmvn:
-        feats = apply_cmvn(feats, frame_lens)
-    return feats.to(getattr(torch, cfg.output_dtype)), frame_lens
+    with named_scope("st.features"):
+        waveforms = torch.as_tensor(waveforms).to(dev)
+        sample_lengths = torch.as_tensor(sample_lengths).to(dev)
+        if waveforms.dtype == torch.int16:
+            waveforms = waveforms.float() * (1.0 / 32768.0)
+        feats = log_mel_spectrogram(waveforms.float(), cfg)
+        frame_lens = frame_lengths_from_sample_lengths(
+            sample_lengths, cfg.frame_length, cfg.frame_shift)
+        frame_lens = torch.clamp(frame_lens, max=feats.shape[-2])
+        if cfg.cmvn:
+            feats = apply_cmvn(feats, frame_lens)
+        return feats.to(getattr(torch, cfg.output_dtype)), frame_lens

@@ -32,6 +32,7 @@ from ..kernels import interface
 from ..models import SpeechTransformer
 from ..ops.masks import NEG_INF
 from ..ops.topk import topk_stable
+from ..utils.profiling import named_scope
 
 
 def length_penalty(lengths: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -76,9 +77,11 @@ def decode_step(model: SpeechTransformer, tokens, index, const, own, mem_lens,
                 beam_width: int, lineage):
     """``model.decode_step`` on a cache held as ``split_cache`` parts:
     (logits, the new self-attention K/V)."""
-    cache = {n: {**c, **own.get(n, {})} for n, c in const.items()}
-    logits, cache = model.decode_step(tokens, index, cache, mem_lens, beam_width, lineage)
-    return logits, {n: {key: cache[n][key] for key in _SELF} for n in own}
+    with named_scope("st.decode.forward"):
+        cache = {n: {**c, **own.get(n, {})} for n, c in const.items()}
+        logits, cache = model.decode_step(tokens, index, cache, mem_lens, beam_width,
+                                          lineage)
+        return logits, {n: {key: cache[n][key] for key in _SELF} for n in own}
 
 
 def decode_loop(step, carry, max_len: int, *, device, stop=None):
@@ -90,7 +93,11 @@ def decode_loop(step, carry, max_len: int, *, device, stop=None):
     a step). While ``torch.export`` traces, it is one ``while_loop`` whose
     step is traced once with ``i`` a 0-d int32 on ``device``, and whose
     test reads a step counter kept on the host, so the exported loop runs
-    its ``max_len`` steps with no device sync; ``stop`` must be None."""
+    its ``max_len`` steps with no device sync; ``stop`` must be None.
+
+    Under a profiler each eager step is an ``st.decode.step`` span, which
+    holds the step and the stop test after it (``st.decode.stop``); the
+    test before the first step is in no step span."""
     if torch.compiler.is_exporting():
         if stop is not None:
             raise ValueError("an exported decode loop runs a fixed number of steps: "
@@ -109,12 +116,20 @@ def decode_loop(step, carry, max_len: int, *, device, stop=None):
             (torch.zeros((), dtype=torch.int64),                      # host counter
              torch.zeros((), dtype=torch.int32, device=device), *leaves))
         return pytree.tree_unflatten(leaves, spec), max_len
+
+    def stopped(c) -> bool:
+        if stop is None:
+            return False
+        with named_scope("st.decode.stop"):
+            return stop(c)
+
     steps = 0
-    for i in range(max_len):
-        if stop is not None and stop(carry):
-            break
-        carry = step(carry, i)
-        steps += 1
+    done = max_len <= 0 or stopped(carry)
+    while not done:
+        with named_scope("st.decode.step"):
+            carry = step(carry, steps)
+            steps += 1
+            done = steps == max_len or stopped(carry)
     return carry, steps
 
 
@@ -134,7 +149,8 @@ def beam_search(
     b, k = memory.shape[0], beam_size
     dev = memory.device
     i32 = dict(dtype=torch.int32, device=dev)
-    const, own = split_cache(model.init_cache(memory, max_len, k, int8_kv))
+    with named_scope("st.decode.init_cache"):
+        const, own = split_cache(model.init_cache(memory, max_len, k, int8_kv))
 
     # Only beam 0 is live at step 0 (all beams would be identical).
     carry = dict(
@@ -150,9 +166,8 @@ def beam_search(
         carry["lineage"] = identity.clone()
     positions = torch.arange(max_len, device=dev)[None, None, :]
 
-    def step(c, i):
-        logits, own = decode_step(model, c["cur_tokens"].reshape(b * k), i, const,
-                                  c["cache"], mem_lens, k, c.get("lineage"))
+    def search(c, i, logits, own):
+        # The prune and the beam bookkeeping of step i.
         v = logits.shape[-1]
         top_scores, top_idx = interface.beam_candidate_topk(
             logits, c["alive_scores"], k2=2 * k, pad_id=PAD, sos_id=SOS)
@@ -194,6 +209,12 @@ def beam_search(
         out["cache"] = own
         return {key: out[key] for key in c}   # in the carry's order
 
+    def step(c, i):
+        logits, own = decode_step(model, c["cur_tokens"].reshape(b * k), i, const,
+                                  c["cache"], mem_lens, k, c.get("lineage"))
+        with named_scope("st.decode.search"):
+            return search(c, i, logits, own)
+
     done = None
     if early_stop:
         max_lp = length_penalty(torch.tensor(max_len), alpha).to(dev)
@@ -209,15 +230,16 @@ def beam_search(
 
     c, steps = decode_loop(step, carry, max_len, device=dev, stop=done)
 
-    # Still-alive beams join the pool, penalized at full length.
-    alive_pen = c["alive_scores"] / length_penalty(
-        torch.full((b, k), max_len, **i32), alpha)
-    all_scores = torch.cat([c["fin_scores"], alive_pen], 1)
-    all_tokens = torch.cat([c["fin_tokens"], c["alive_tokens"]], 1)
-    all_lens = torch.cat([c["fin_lens"], torch.full((b, k), max_len, **i32)], 1)
-    final_scores, sel = topk_stable(all_scores, k)
-    return BeamResult(tokens=_take(all_tokens, sel), lengths=_take(all_lens, sel),
-                      scores=final_scores, steps=steps)
+    with named_scope("st.decode.finalize"):
+        # Still-alive beams join the pool, penalized at full length.
+        alive_pen = c["alive_scores"] / length_penalty(
+            torch.full((b, k), max_len, **i32), alpha)
+        all_scores = torch.cat([c["fin_scores"], alive_pen], 1)
+        all_tokens = torch.cat([c["fin_tokens"], c["alive_tokens"]], 1)
+        all_lens = torch.cat([c["fin_lens"], torch.full((b, k), max_len, **i32)], 1)
+        final_scores, sel = topk_stable(all_scores, k)
+        return BeamResult(tokens=_take(all_tokens, sel), lengths=_take(all_lens, sel),
+                          scores=final_scores, steps=steps)
 
 
 @torch.no_grad()
@@ -248,9 +270,10 @@ def encode_on(model: SpeechTransformer, feats, frame_lens, device: DeviceLike):
     param = next(model.parameters())
     if param.device.type != dev.type:
         raise ValueError(f"model is on {param.device}, decoding on {dev}")
-    feats = torch.as_tensor(feats).to(dev)
-    frame_lens = torch.as_tensor(frame_lens).to(dev)
-    return model.encode(feats, frame_lens)
+    with named_scope("st.encode"):
+        feats = torch.as_tensor(feats).to(dev)
+        frame_lens = torch.as_tensor(frame_lens).to(dev)
+        return model.encode(feats, frame_lens)
 
 
 def best_hypotheses(result: BeamResult) -> List[List[int]]:

@@ -21,6 +21,7 @@ import torch
 
 from ..device import DeviceLike
 from ..models import SpeechTransformer
+from ..utils.profiling import named_scope
 from .beam import EOS, PAD, SOS, decode_loop, decode_step, encode_on, split_cache
 
 
@@ -36,19 +37,21 @@ def greedy_search(model: SpeechTransformer, memory: torch.Tensor,
                   mem_lens: torch.Tensor, *, max_len: int,
                   int8_kv: bool = False, early_stop: bool = True) -> GreedyResult:
     b, dev = memory.shape[0], memory.device
-    const, own = split_cache(model.init_cache(memory, max_len, 1, int8_kv))
+    with named_scope("st.decode.init_cache"):
+        const, own = split_cache(model.init_cache(memory, max_len, 1, int8_kv))
     lineage = torch.zeros((b, 1, max_len), dtype=torch.int32, device=dev)
     positions = torch.arange(max_len, device=dev)[None, :]
 
     def step(c, i):
         cur, finished, tokens, own = c
         logits, own = decode_step(model, cur, i, const, own, mem_lens, 1, lineage)
-        logits[:, PAD].fill_(float("-inf"))
-        logits[:, SOS].fill_(float("-inf"))
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        nxt = torch.where(finished, torch.full_like(nxt, PAD), nxt)
-        tokens = torch.where(positions == i, nxt[:, None], tokens)
-        return nxt, finished | (nxt == EOS), tokens, own
+        with named_scope("st.decode.search"):
+            logits[:, PAD].fill_(float("-inf"))
+            logits[:, SOS].fill_(float("-inf"))
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = torch.where(finished, torch.full_like(nxt, PAD), nxt)
+            tokens = torch.where(positions == i, nxt[:, None], tokens)
+            return nxt, finished | (nxt == EOS), tokens, own
 
     carry = (torch.full((b,), SOS, dtype=torch.int32, device=dev),
              torch.zeros((b,), dtype=torch.bool, device=dev),
@@ -56,8 +59,9 @@ def greedy_search(model: SpeechTransformer, memory: torch.Tensor,
     (_, _, tokens, _), steps = decode_loop(
         step, carry, max_len, device=dev,
         stop=(lambda c: bool(c[1].all())) if early_stop else None)
-    lengths = ((tokens != EOS) & (tokens != PAD)).sum(dim=-1, dtype=torch.int32)
-    return GreedyResult(tokens=tokens, lengths=lengths, steps=steps)
+    with named_scope("st.decode.finalize"):
+        lengths = ((tokens != EOS) & (tokens != PAD)).sum(dim=-1, dtype=torch.int32)
+        return GreedyResult(tokens=tokens, lengths=lengths, steps=steps)
 
 
 @torch.no_grad()

@@ -7,9 +7,12 @@ weights, 8 int16 utterances of 4-6 s, beam 5, max_len 100; with ``--int8``
 int8 weights and an int8 cross-K/V cache) once to warm
 up, once timed, then once under ``torch.profiler``. Prints one JSON line:
 the wall time, the device's busy time (union of kernel intervals) and idle
-share, kernel launches per decode step, and the kernels that take the most
-device time. ``chip_smoke.py`` serves the same batch through
-``smoke_batch``, so the trace describes the path it measures.
+share, kernel launches per decode step, the kernels that take the most
+device time, and for each of the program's spans (``st.*``,
+``utils/profiling.span_stats``) its count, host time, launches per decode
+step and the device time its launches caused. ``chip_smoke.py`` serves
+the same batch through ``smoke_batch``, so the trace describes the path
+it measures.
 """
 
 from __future__ import annotations
@@ -58,24 +61,12 @@ def smoke_batch(device: DeviceLike = None, *, int8: bool = False) -> SmokeBatch:
                       audio, lens)
 
 
-def _busy_us(intervals) -> float:
-    """Length of the union of [start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
-
 def main() -> None:
     import argparse
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from .utils.profiling import device_ops, span_stats
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--int8", action="store_true",
@@ -97,14 +88,14 @@ def main() -> None:
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
 
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels, busy = device_ops(prof)
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for e in kernels:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
-    busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     steps = rec.last_steps
+    spans = span_stats(prof.profiler.kineto_results.events())
     print(json.dumps({"profile": {
         "device": torch.cuda.get_device_name(0), "int8": int8,
         "wall_s": wall_plain, "wall_s_profiled": wall_prof, "decode_steps": steps,
@@ -113,7 +104,11 @@ def main() -> None:
         "device_busy_s": busy / 1e6,
         "device_idle_share": 1.0 - busy / 1e6 / wall_prof,
         "top_kernels": [{"name": n[:90], "calls": c, "total_ms": t / 1e3}
-                        for n, (c, t) in top]}}), flush=True)
+                        for n, (c, t) in top],
+        "spans": {n: {"count": v.count, "host_ms": v.host_s * 1e3,
+                      "launches_per_step": v.launches / max(steps, 1),
+                      "device_ms": v.device_s * 1e3}
+                  for n, v in sorted(spans.items())}}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -42,8 +42,8 @@ from .config import ExperimentConfig, get_config
 from .data.pipeline import AudioBatch, make_audio_train_step
 from .data.synthetic import make_utterances, pad_targets
 from .device import DeviceLike, resolve_device
-from .profile_decode import _busy_us
 from .train import TrainState, create_train_state
+from .utils.profiling import busy_us, device_ops
 
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 
@@ -106,24 +106,21 @@ def _trace_summary(prof, wall: float) -> dict:
     """Device time of a profiled step: busy (the union of kernel
     intervals), idle share of ``wall``, NCCL kernels' time and what of it
     no compute kernel overlaps, by kernel group and the top kernels."""
-    from torch.autograd import DeviceType
-
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels, busy = device_ops(prof)
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for e in kernels:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
-    span = lambda es: _busy_us((e.time_range.start, e.time_range.end) for e in es) / 1e6
     nccl = [e for e in kernels if "nccl" in e.name.lower()]
     compute = [e for e in kernels if "nccl" not in e.name.lower()]
-    busy, compute_s = span(kernels), span(compute)
+    busy, compute_s = busy / 1e6, busy_us(compute) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     groups = collections.defaultdict(float)
     for name, (_, t) in by_name.items():
         groups[_group(name)] += t / 1e3
     return {"device_events": len(kernels), "device_busy_s": busy,
             "device_idle_share": 1.0 - busy / wall,
-            "compute_busy_s": compute_s, "nccl_busy_s": span(nccl),
+            "compute_busy_s": compute_s, "nccl_busy_s": busy_us(nccl) / 1e6,
             "nccl_exposed_s": busy - compute_s,
             "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "top_kernels": [{"name": n[:90], "calls": c, "total_ms": t / 1e3}

@@ -34,6 +34,7 @@ from .ops.quantize import decode_model, quantize_params
 from .parallel.decode import make_sharded_beam_decode, make_sharded_greedy_decode
 from .parallel.sharding import data_rows, gather_rows, shard_params
 from .utils.checkpoint import Checkpointer
+from .utils.profiling import named_scope
 
 
 class Recognizer:
@@ -85,11 +86,12 @@ class Recognizer:
         when ``beam_size == 1`` (as the JAX ``Recognizer`` routes it). With
         a mesh the batch is the global one: each data rank decodes its
         rows and the result is gathered back in row order."""
-        if self.mesh is not None:
-            audio_int16, sample_lens = (data_rows(torch.as_tensor(x), self.mesh)
-                                        for x in (audio_int16, sample_lens))
-        return self._decode(audio_int16, sample_lens, beam_size=beam_size,
-                            max_len=max_len, alpha=alpha)
+        with named_scope("st.recognize"):
+            if self.mesh is not None:
+                audio_int16, sample_lens = (data_rows(torch.as_tensor(x), self.mesh)
+                                            for x in (audio_int16, sample_lens))
+            return self._decode(audio_int16, sample_lens, beam_size=beam_size,
+                                max_len=max_len, alpha=alpha)
 
     def _decode(self, audio_int16, sample_lens, *, beam_size: int, max_len: int,
                 alpha: float) -> Union[BeamResult, GreedyResult]:

@@ -112,6 +112,22 @@ def test_export_greedy_roundtrip_matches_jax(setup):
     assert not any(t.startswith("st_port.beam_candidate_topk") for t in ops)
 
 
+def test_export_under_a_profiler_traces_no_span(setup, beam_artifact):
+    """The program's spans (``utils/profiling.named_scope``) are left out
+    while exporting, even with a profiler running: the artifact calls the
+    same operators and decodes the same."""
+    _, _, cfg, params, feats, lens = setup
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        data = export_recognizer(cfg, params, batch_size=B, frames=FRAMES, beam_size=3,
+                                 max_len=MAX_LEN, device="cpu")
+    ops = _op_targets(data)
+    assert not any("profiler" in t or "record_function" in t for t in ops), sorted(ops)
+    assert ops == _op_targets(beam_artifact)
+    for got, want in zip(_call(data, params, feats, lens),
+                         _call(beam_artifact, params, feats, lens)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_load_exported_imports_no_model_code(setup, beam_artifact, tmp_path):
     """A fresh process loads the artifact and decodes with the flat params
     alone: ``models``, ``config`` and ``decoding`` stay unimported."""
