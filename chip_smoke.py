@@ -32,7 +32,13 @@ Phases (any failure exits non-zero before the final line):
      timed at the beam-5 and greedy decode shapes); lineage attention is
      bit-identical on a second call in every case and timed at three
      decode indices and at K = 1;
-  3. the serving main path: ``Recognizer.decode_batch`` at the ``base``
+  3. the beam step replayed as CUDA graphs (``graph_decode``): the
+     ``base`` beam-5 float and int8 paths on one batch of each shape of
+     the serving benchmark's mix, graph and eager searches equal in
+     hypotheses, lengths, steps and scores, with exact launches, one
+     capture a shape, a replay a step, the memory peak under the build's,
+     and an arena grown shape by shape captured again each time;
+     then the serving main path: ``Recognizer.decode_batch`` at the ``base``
      preset (full width, bf16, seeded random weights) serving 8 int16
      utterances of 4-6 s with beam 5 and max_len 100, with the kernels'
      exact launch counts, and the same batch decoded in float32 with
@@ -1751,6 +1757,174 @@ def main_path(torch, dev, int8: bool = False):
     return counts, params, audio, lens
 
 
+MIX_BUCKETS = (200, 400, 600, 800, 1000, 1400)   # portbench/mixes/serve.aishell-b8.json
+
+
+def _mix_batches(torch, cfg):
+    """One batch of 8 int16 utterances (seeded) in each length bucket of the
+    serving benchmark's mix, padded to the bucket's boundary as the port
+    pads its batches, with the mix's decode limit (0.128 of the encoder
+    frames, 4 to 100): [(audio, lens, max_len)], the longest first."""
+    import numpy as np
+
+    from speech_tranformer_pytorch_tpu_torch.data.pipeline import _samples_for_frames
+    from speech_tranformer_pytorch_tpu_torch.data.synthetic import make_utterances
+    from speech_tranformer_pytorch_tpu_torch.models.modules import subsampled_lengths
+
+    f, sr = cfg.features, cfg.features.sample_rate
+    out, low = [], 100
+    for i, top in enumerate(MIX_BUCKETS):
+        audio, lens = make_utterances(8, min_seconds=_samples_for_frames(low + 1, f) / sr,
+                                      max_seconds=_samples_for_frames(top, f) / sr, seed=i)
+        padded = np.zeros((8, _samples_for_frames(top, f)), np.int16)
+        padded[:, :audio.shape[1]] = audio
+        enc = int(subsampled_lengths(torch.tensor(top)))
+        out.append((padded, lens, max(4, min(100, int(0.128 * enc)))))
+        low = top
+    return out[::-1]
+
+
+def graph_decode(torch, dev):
+    """The beam step replayed as CUDA graphs (``decoding/beam_graph.py``)
+    against the eager search, at the ``base`` preset's beam-5 float path
+    and its int8 path (int8 weights and cross-K/V cache), each on a
+    ``Recognizer`` built from parameters on the card, as the serving
+    benchmark builds it, and on one batch of each shape of the benchmark's
+    mix (``_mix_batches``). Both functions are called directly
+    (``beam_graph.graph_beam_search``, ``beam.eager_beam_search``), after
+    the same features and encoder (on the batch's first encoding, see
+    ``serve``): hypotheses, lengths, steps and scores must be equal, every
+    call's launches must be
+    ``expected_serve_launches``; the first pass over the shapes (largest
+    first) captures each once and replays nothing, the second replays
+    every step and captures nothing; after both, the card's memory peak
+    stays under the build's. Float path only: a pass smallest first on a
+    new arena grows it at every shape and captures every shape seen again
+    each time (1 + 2 + ... + 6), after which a pass replays only."""
+    from speech_tranformer_pytorch_tpu_torch.config import get_config
+    from speech_tranformer_pytorch_tpu_torch.data.features import extract_features
+    from speech_tranformer_pytorch_tpu_torch.decoding import beam_graph
+    from speech_tranformer_pytorch_tpu_torch.decoding.beam import eager_beam_search, encode_on
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.models import SpeechTransformer
+    from speech_tranformer_pytorch_tpu_torch.profile_decode import DECODE, INT8
+    from speech_tranformer_pytorch_tpu_torch.recognize import Recognizer
+
+    beam = DECODE["beam_size"]
+    report = {}
+    for int8 in (False, True):
+        cfg = get_config("base", **(INT8 if int8 else {}))
+        params = SpeechTransformer(cfg.model).init_weights(
+            torch.Generator().manual_seed(0)).state_dict()
+        batches = _mix_batches(torch, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        on_card = {k: v.to(dev) for k, v in params.items()}
+        rec = Recognizer(cfg, on_card, device=dev)
+        del on_card
+        torch.cuda.synchronize()
+        build_peak = torch.cuda.max_memory_allocated(dev)
+        built = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        encoded, redrawn = {}, []
+
+        def serve(fn, i):
+            """One call of ``fn`` on batch ``i`` after its features and
+            encoder: (result, wall s). Every call runs the encoder (its
+            memory and launches are a served call's), and every search
+            reads the batch's first encoding, so that all paths decode the
+            same input: the encoder's output may differ between calls in its
+            last bits (``redrawn`` notes each call where it did)."""
+            audio, lens, max_len = batches[i]
+            interface.reset_launch_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                feats, flens = extract_features(audio, lens, cfg.features, device=dev)
+                memory, mem_lens = encode_on(rec.model, feats, flens, dev)
+                first, first_lens = encoded.setdefault(i, (memory, mem_lens))
+                r = fn(rec.model, first, first_lens, beam_size=beam, max_len=max_len,
+                       alpha=DECODE["alpha"], int8_kv=rec.int8_kv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = interface.launch_counts()
+            want = expected_serve_launches(cfg, r.steps, int8, beam)
+            if r.steps <= 0 or counts != want:
+                raise AssertionError(f"{fn.__name__}: launch counts {counts}, expected {want}")
+            if not torch.equal(memory, first):
+                redrawn.append(i)
+            return r, wall
+
+        def run_pass(fn, order):
+            interface.reset_decode_step_counts()
+            out = {i: serve(fn, i) for i in order}
+            return out, interface.decode_step_counts()
+
+        shapes = range(len(batches))
+        first, first_counts = run_pass(beam_graph.graph_beam_search, shapes)
+        replayed, replay_counts = run_pass(beam_graph.graph_beam_search, shapes)
+        serve_peak = torch.cuda.max_memory_allocated(dev)
+        arena = beam_graph._GRAPHS[rec.model]
+        arena_bytes = sum(b.numel() * b.element_size() for b in arena._buffers.values())
+        eager, eager_counts = run_pass(eager_beam_search, shapes)
+        steps = sum(r.steps for r, _ in eager.values())
+        want_counts = [{"captures": len(batches), "replays": 0, "eager_steps": steps},
+                       {"captures": 0, "replays": steps, "eager_steps": 0},
+                       {"captures": 0, "replays": 0, "eager_steps": steps}]
+        if [first_counts, replay_counts, eager_counts] != want_counts:
+            raise AssertionError(f"decode step counts {first_counts}, {replay_counts}, "
+                                 f"{eager_counts}; expected {want_counts}")
+        score_diff, differ = 0.0, []
+        for i in shapes:
+            e = eager[i][0]
+            for tag, (g, _) in (("first", first[i]), ("replayed", replayed[i])):
+                diff = float((g.scores - e.scores).abs().max())
+                score_diff = max(score_diff, diff)
+                if (g.steps != e.steps or not torch.equal(g.tokens, e.tokens)
+                        or not torch.equal(g.lengths, e.lengths)
+                        or not torch.equal(g.scores, e.scores)):
+                    differ.append({"pass": tag, "samples": int(batches[i][0].shape[1]),
+                                   "steps": [g.steps, e.steps], "score_diff": diff,
+                                   "tokens_equal": bool(torch.equal(g.tokens, e.tokens))})
+        if differ:
+            raise AssertionError(f"{'int8' if int8 else 'float'} graph and eager decodes "
+                                 f"differ: {differ}")
+        if not serve_peak < build_peak:
+            raise AssertionError(f"graph serving peak {serve_peak} B is not under the "
+                                 f"build's {build_peak} B")
+        res = {"encoder_output_redrawn": len(redrawn),
+               "build_peak_bytes": build_peak, "built_bytes": built,
+               "serve_peak_bytes": serve_peak,
+               "arena_bytes": arena_bytes, "steps": steps,
+               "widest_score_diff": score_diff, "decode_step_counts": want_counts,
+               "shapes": [{"samples": int(batches[i][0].shape[1]), "max_len": batches[i][2],
+                           "steps": eager[i][0].steps, "eager_s": eager[i][1],
+                           "first_s": first[i][1], "replayed_s": replayed[i][1]}
+                          for i in shapes]}
+        res["eager_s"] = sum(w for _, w in eager.values())
+        res["replayed_s"] = sum(w for _, w in replayed.values())
+        if not int8:   # a new arena, smallest first: it grows at every shape
+            del beam_graph._GRAPHS[rec.model]
+            grown, grown_counts = run_pass(beam_graph.graph_beam_search, shapes[::-1])
+            again, again_counts = run_pass(beam_graph.graph_beam_search, shapes)
+            n = len(batches)
+            want_growth = [{"captures": n * (n + 1) // 2, "replays": 0, "eager_steps": steps},
+                           {"captures": 0, "replays": steps, "eager_steps": 0}]
+            if [grown_counts, again_counts] != want_growth:
+                raise AssertionError(f"growing arena: decode step counts {grown_counts}, "
+                                     f"{again_counts}; expected {want_growth}")
+            for i in shapes:
+                for g, _ in (grown[i], again[i]):
+                    if not (torch.equal(g.tokens, eager[i][0].tokens)
+                            and torch.equal(g.scores, eager[i][0].scores)):
+                        raise AssertionError(f"growing arena: {batches[i][0].shape} differs")
+            res["growth_counts"] = want_growth
+        report["int8" if int8 else "float"] = res
+        del rec, arena
+        beam_graph._GRAPHS.clear()
+    emit({"graph_decode": report})
+
+
 def card_vs_cpu(torch, dev, params, audio, lens, int8: bool = False):
     """float32 on 2 utterances, the kernels on the card against the plain
     versions on the CPU: hypotheses identical, first-step logits within
@@ -3004,7 +3178,7 @@ def parallel_path(torch, dev):
 
 CHECKS = ("check_fbank", "check_beam_prune", "check_lineage", "check_flash",
           "check_ring_blocks", "check_adam", "check_int8_matmul", "check_int8_ffn")
-PHASES = CHECKS + ("main_path", "export_path", "card_vs_cpu", "int8_path",
+PHASES = CHECKS + ("graph_decode", "main_path", "export_path", "card_vs_cpu", "int8_path",
                    "int8_card_vs_cpu", "train_path", "large_train_path",
                    "train_card_vs_cpu", "overfit_anchor", "manifest_path", "pipeline_path",
                    "drive_recipe", "parallel_path")
@@ -3049,6 +3223,10 @@ def main() -> int:
             else:
                 recs += out if isinstance(out, list) else [out]
             emit({"phase_s": {name: time.perf_counter() - t0}})
+    if "graph_decode" in phases:
+        t0 = time.perf_counter()
+        graph_decode(torch, dev)
+        emit({"phase_s": {"graph_decode": time.perf_counter() - t0}})
     counts = {"serve": {}, "export": {}, "serve_int8": {}, "train": {}, "large": {},
               "large_master": {},
               "large_trainer": {}, "librispeech": {}, "manifest": {}, "pipeline": {},

@@ -17,6 +17,12 @@ exact bound, not an approximation), which costs one host sync a step;
 fixed-trip loop that ``serving.export_recognizer`` exports, with the same
 results. Every top-k uses ``topk_stable``, whose tie order is
 ``jax.lax.top_k``'s.
+
+On a card, with the lineage table, a model without a mesh and nothing
+being exported, ``beam_search`` replays each step as a CUDA graph
+(``decoding/beam_graph.py``); everywhere else it runs
+``eager_beam_search``. Both run the one step function, ``beam_step``, and
+give the same results.
 """
 
 from __future__ import annotations
@@ -97,7 +103,8 @@ def decode_loop(step, carry, max_len: int, *, device, stop=None):
 
     Under a profiler each eager step is an ``st.decode.step`` span, which
     holds the step and the stop test after it (``st.decode.stop``); the
-    test before the first step is in no step span."""
+    test before the first step is in no step span. The steps run count as
+    ``eager_steps`` (``kernels/interface.decode_step_counts``)."""
     if torch.compiler.is_exporting():
         if stop is not None:
             raise ValueError("an exported decode loop runs a fixed number of steps: "
@@ -130,41 +137,39 @@ def decode_loop(step, carry, max_len: int, *, device, stop=None):
             carry = step(carry, steps)
             steps += 1
             done = steps == max_len or stopped(carry)
+    interface.count_decode_steps("eager_steps", steps)
     return carry, steps
 
 
-@torch.no_grad()
-def beam_search(
-    model: SpeechTransformer,
-    memory: torch.Tensor,        # [B, S, d_model]
-    mem_lens: torch.Tensor,      # [B]
-    *,
-    beam_size: int,
-    max_len: int,
-    alpha: float = 1.0,
-    int8_kv: bool = False,
-    early_stop: bool = True,
-    use_lineage: bool = True,
-) -> BeamResult:
-    b, k = memory.shape[0], beam_size
-    dev = memory.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    with named_scope("st.decode.init_cache"):
-        const, own = split_cache(model.init_cache(memory, max_len, k, int8_kv))
-
-    # Only beam 0 is live at step 0 (all beams would be identical).
+def initial_carry(b: int, k: int, max_len: int, device, own, use_lineage: bool) -> dict:
+    """The search's state before step 0, holding the self-attention K/V
+    ``own``: <sos> for every beam, with only beam 0 live (all beams would
+    be identical), empty pools, and the identity lineage table."""
+    i32 = dict(dtype=torch.int32, device=device)
     carry = dict(
         cur_tokens=torch.full((b, k), SOS, **i32),
         alive_tokens=torch.full((b, k, max_len), PAD, **i32),
-        alive_scores=torch.tensor([0.0] + [NEG_INF] * (k - 1), device=dev).repeat(b, 1),
+        alive_scores=torch.tensor([0.0] + [NEG_INF] * (k - 1), device=device).repeat(b, 1),
         fin_tokens=torch.full((b, k, max_len), PAD, **i32),
-        fin_scores=torch.full((b, k), NEG_INF, device=dev),
+        fin_scores=torch.full((b, k), NEG_INF, device=device),
         fin_lens=torch.zeros((b, k), **i32), cache=own)
-    # lineage[b, k, j]: the cache lane holding beam k's step-j key/value.
-    identity = torch.arange(k, **i32)[None, :, None].expand(b, k, max_len)
     if use_lineage:
-        carry["lineage"] = identity.clone()
-    positions = torch.arange(max_len, device=dev)[None, None, :]
+        # lineage[b, k, j]: the cache lane holding beam k's step-j key/value.
+        carry["lineage"] = torch.arange(k, **i32)[None, :, None].expand(
+            b, k, max_len).clone()
+    return carry
+
+
+def beam_step(model: SpeechTransformer, const, mem_lens: torch.Tensor, *, b: int, k: int,
+              max_len: int, alpha: float, use_lineage: bool, device):
+    """Beam search's step: ``step(carry, i)`` runs step ``i`` (an int, or a
+    0-d int32 tensor on ``device``) from ``carry`` (``initial_carry``'s
+    keys) and returns the next carry: the decoder step over the cache held
+    as ``split_cache`` parts (``const``, and the carry's own self K/V, which
+    the step writes in place), then the prune and the beam bookkeeping."""
+    i32 = dict(dtype=torch.int32, device=device)
+    identity = torch.arange(k, **i32)[None, :, None].expand(b, k, max_len)
+    positions = torch.arange(max_len, device=device)[None, None, :]
 
     def search(c, i, logits, own):
         # The prune and the beam bookkeeping of step i.
@@ -215,31 +220,108 @@ def beam_search(
         with named_scope("st.decode.search"):
             return search(c, i, logits, own)
 
+    return step
+
+
+def stop_bound(max_len: int, alpha: float, device) -> torch.Tensor:
+    """lp(max_len) on ``device``: what ``keep_going`` divides by."""
+    return length_penalty(torch.tensor(max_len), alpha).to(device)
+
+
+def keep_going(c, max_lp: torch.Tensor) -> torch.Tensor:
+    """The early-stop test of a carry, a 0-d bool on its device: false once
+    no alive hypothesis can beat the worst finished one anywhere. An alive
+    hypothesis can at best reach score / lp(max_len), so then the steps
+    left would change nothing: the stop is exact."""
+    bound = c["alive_scores"].max(dim=1).values / max_lp
+    worst_fin = c["fin_scores"].min(dim=1).values
+    pool_full = worst_fin > NEG_INF / 2.0
+    return torch.any(~pool_full | (bound > worst_fin))
+
+
+def finalize(c, steps: int, alpha: float) -> BeamResult:
+    """The result of a finished carry: still-alive beams join the pool,
+    penalized at full length, and the best K of it are kept."""
+    b, k = c["alive_scores"].shape
+    max_len = c["alive_tokens"].shape[-1]
+    i32 = dict(dtype=torch.int32, device=c["alive_scores"].device)
+    alive_pen = c["alive_scores"] / length_penalty(
+        torch.full((b, k), max_len, **i32), alpha)
+    all_scores = torch.cat([c["fin_scores"], alive_pen], 1)
+    all_tokens = torch.cat([c["fin_tokens"], c["alive_tokens"]], 1)
+    all_lens = torch.cat([c["fin_lens"], torch.full((b, k), max_len, **i32)], 1)
+    final_scores, sel = topk_stable(all_scores, k)
+    return BeamResult(tokens=_take(all_tokens, sel), lengths=_take(all_lens, sel),
+                      scores=final_scores, steps=steps)
+
+
+def replays_graphs(model: SpeechTransformer, memory, max_len: int,
+                   use_lineage: bool) -> bool:
+    """Whether ``beam_search`` replays its steps as CUDA graphs: for memory
+    on a card, with the lineage table and at least one step, for a model
+    without a mesh (tensor-parallel collectives stay eager), and not while
+    ``torch.export`` traces (the exported loop is a ``while_loop``)."""
+    return (use_lineage and memory.device.type == "cuda" and max_len > 0
+            and model.decoder.mesh is None and not torch.compiler.is_exporting())
+
+
+@torch.no_grad()
+def beam_search(
+    model: SpeechTransformer,
+    memory: torch.Tensor,        # [B, S, d_model]
+    mem_lens: torch.Tensor,      # [B]
+    *,
+    beam_size: int,
+    max_len: int,
+    alpha: float = 1.0,
+    int8_kv: bool = False,
+    early_stop: bool = True,
+    use_lineage: bool = True,
+) -> BeamResult:
+    """Beam search over encoded ``memory``: replayed as CUDA graphs where
+    ``replays_graphs`` (``beam_graph.graph_beam_search``), else
+    ``eager_beam_search``."""
+    kw = dict(beam_size=beam_size, max_len=max_len, alpha=alpha, int8_kv=int8_kv,
+              early_stop=early_stop)
+    if replays_graphs(model, memory, max_len, use_lineage):
+        from .beam_graph import graph_beam_search
+
+        return graph_beam_search(model, memory, mem_lens, **kw)
+    return eager_beam_search(model, memory, mem_lens, use_lineage=use_lineage, **kw)
+
+
+@torch.no_grad()
+def eager_beam_search(
+    model: SpeechTransformer,
+    memory: torch.Tensor,        # [B, S, d_model]
+    mem_lens: torch.Tensor,      # [B]
+    *,
+    beam_size: int,
+    max_len: int,
+    alpha: float = 1.0,
+    int8_kv: bool = False,
+    early_stop: bool = True,
+    use_lineage: bool = True,
+) -> BeamResult:
+    """Beam search issuing every step's kernels from Python
+    (``decode_loop``), with the step index a Python int."""
+    b, k = memory.shape[0], beam_size
+    dev = memory.device
+    with named_scope("st.decode.init_cache"):
+        const, own = split_cache(model.init_cache(memory, max_len, k, int8_kv))
+    carry = initial_carry(b, k, max_len, dev, own, use_lineage)
+    step = beam_step(model, const, mem_lens, b=b, k=k, max_len=max_len, alpha=alpha,
+                     use_lineage=use_lineage, device=dev)
     done = None
     if early_stop:
-        max_lp = length_penalty(torch.tensor(max_len), alpha).to(dev)
+        max_lp = stop_bound(max_len, alpha, dev)
 
         def done(c) -> bool:
-            # An alive hypothesis can at best reach score / lp(max_len): stop
-            # once that is <= the worst finished score everywhere; the steps
-            # left would change nothing.
-            bound = c["alive_scores"].max(dim=1).values / max_lp
-            worst_fin = c["fin_scores"].min(dim=1).values
-            pool_full = worst_fin > NEG_INF / 2.0
-            return not bool(torch.any(~pool_full | (bound > worst_fin)))
+            return not bool(keep_going(c, max_lp))
 
     c, steps = decode_loop(step, carry, max_len, device=dev, stop=done)
-
     with named_scope("st.decode.finalize"):
-        # Still-alive beams join the pool, penalized at full length.
-        alive_pen = c["alive_scores"] / length_penalty(
-            torch.full((b, k), max_len, **i32), alpha)
-        all_scores = torch.cat([c["fin_scores"], alive_pen], 1)
-        all_tokens = torch.cat([c["fin_tokens"], c["alive_tokens"]], 1)
-        all_lens = torch.cat([c["fin_lens"], torch.full((b, k), max_len, **i32)], 1)
-        final_scores, sel = topk_stable(all_scores, k)
-        return BeamResult(tokens=_take(all_tokens, sel), lengths=_take(all_lens, sel),
-                          scores=final_scores, steps=steps)
+        return finalize(c, steps, alpha)
 
 
 @torch.no_grad()

@@ -1,0 +1,270 @@
+"""Beam search with each step replayed as a CUDA graph.
+
+``beam.beam_search`` comes here for a model on a card, with the lineage
+table, no mesh and nothing being exported. Issued from Python, one beam
+step is some 215 kernel launches, and the host spends about twenty times
+the device time they cause on issuing them; a CUDA graph issues them in
+one launch. What is captured is ``beam.beam_step``, the eager search's own
+step function, run with its index a 0-d int32 tensor on the card and its
+state in static buffers that it updates in place: the self K/V cache is
+written at the index (``index_copy_``), the rest of the carry is copied
+back at the end of the step, the early-stop test is computed into a flag
+on the card and the index is incremented. So one replay advances the
+search by one step, and every kernel in it is the one the eager step
+launches.
+
+``StepGraphs`` holds a model's static arena: flat buffers, one for each
+tensor of the search's state and caches (the tied output table aside,
+which the step casts to float32 itself), each sized for the largest step
+shape seen so far. A step shape (batch, beam, max_len, encoder frames,
+dtype, int8 cross cache, alpha) takes views of them, so one arena serves
+every shape, and every capture shares one graph memory pool. A call
+writes its initial state and caches into its views (what the eager search
+starts from, nothing left of an earlier call), then
+
+- at a shape's first sight, runs the step eagerly on the views, and
+  captures it once the call is done (an ``st.decode.capture`` span);
+- afterwards replays its graph once a step and, with ``early_stop``,
+  reads the flag after each replay (one host sync a step, as the eager
+  loop has): the steps run are the eager loop's.
+
+A shape larger than the arena grows it, and parameters whose storage
+moved invalidate the captures: either drops every graph, and every shape
+seen is captured again at the end of that call, so a caller that serves
+each shape once before its traffic captures nothing later. On the CPU the
+same code runs the step eagerly on the arena at every call (nothing is
+captured there), which is how the tests hold it to ``eager_beam_search``.
+
+Launch counts (``kernels/interface.launch_counts``) stay the kernels the
+port ran: a capture's launches are taken back, and every replay credits
+the captured step's. ``interface.decode_step_counts`` counts the captures,
+replays and eager steps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import weakref
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..kernels import interface
+from ..models import SpeechTransformer
+from ..utils.profiling import named_scope
+from .beam import (BeamResult, beam_step, decode_loop, finalize, initial_carry,
+                   keep_going, split_cache, stop_bound)
+
+# name -> (shape, strides, dtype) of each tensor a step shape keeps in the arena
+Spec = Dict[str, Tuple[Tuple[int, ...], Tuple[int, ...], torch.dtype]]
+
+
+@dataclasses.dataclass
+class _Step:
+    """One step shape on the arena: its views, the step that advances
+    them in place, and its graph once captured."""
+    carry: dict                  # the search's state (views), self K/V included
+    go: torch.Tensor             # 0-d bool: the early-stop test after the last step
+    max_lp: torch.Tensor         # what the test divides by (``beam.stop_bound``)
+    advance: Callable[[], None]  # one step in place: what is captured
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+
+class StepGraphs:
+    """A model's static arena and the captured beam step of each shape
+    (module docstring). One per model: ``graph_beam_search`` keeps it."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._buffers: Dict[Tuple[str, torch.dtype], torch.Tensor] = {}
+        self._specs: Dict[tuple, Spec] = {}      # every step shape seen
+        self._steps: Dict[tuple, _Step] = {}     # built on the current buffers
+        self._params: tuple = ()                 # storage the graphs read
+        self._pool = None
+        self._stream = None
+
+    def _take(self, name: str, shape, strides, dtype: torch.dtype) -> torch.Tensor:
+        """A view of ``shape`` and ``strides`` at the start of the buffer of
+        ``name``; growing the buffer drops every step built on the old one.
+        The strides are the eager cache's (the int8 cross K/V keep the
+        encoder's frame-major order), so that every product in the step
+        reads its operands as the eager step does and computes the same
+        bits."""
+        n = 1 + sum((size - 1) * step for size, step in zip(shape, strides))
+        buf = self._buffers.get((name, dtype))
+        if buf is None or buf.numel() < n:
+            self._drop_graphs()
+            self._buffers.pop((name, dtype), None)   # freed before its successor
+            buf = torch.empty(n, dtype=dtype, device=self.device)
+            self._buffers[(name, dtype)] = buf
+        return buf.as_strided(shape, strides)
+
+    def _drop_graphs(self) -> None:
+        """Forget every step built on the arena; the next captures go to a
+        new pool (a pool whose graphs are all gone cannot take more)."""
+        self._steps.clear()
+        self._pool = None
+
+    def _build(self, model: SpeechTransformer, key: tuple, spec: Spec) -> _Step:
+        """The views of ``spec`` and the step that advances them."""
+        b, k, max_len, _, _, _, alpha = key
+        views = {name: self._take(name, *layout) for name, layout in spec.items()}
+        cache: dict = {}
+        for name, view in views.items():
+            if name.startswith("cache."):
+                layer, tensor = name[len("cache."):].split(".")
+                cache.setdefault(layer, {})[tensor] = view
+        const, own = split_cache(cache)
+        carry = {name[len("carry."):]: view for name, view in views.items()
+                 if name.startswith("carry.")}
+        carry["cache"] = own
+        index, go = views["index"], views["go"]
+        max_lp = stop_bound(max_len, alpha, self.device)
+        # A proxy: the steps live as long as the model, and must not keep it.
+        step = beam_step(weakref.proxy(model), const, views["mem_lens"], b=b, k=k,
+                         max_len=max_len, alpha=alpha, use_lineage=True,
+                         device=self.device)
+
+        def advance() -> None:
+            nxt = step(carry, index)
+            for name, t in nxt.items():
+                if name != "cache":   # the self K/V were written in place
+                    carry[name].copy_(t)
+            go.copy_(keep_going(carry, max_lp))
+            index.add_(1)
+
+        return _Step(carry=carry, go=go, max_lp=max_lp, advance=advance)
+
+    def _capture(self, entry: _Step) -> None:
+        """Capture one step of ``entry`` on a side stream into the shared
+        pool; its launches are taken back and kept for the replays."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        before = interface.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with named_scope("st.decode.capture"):
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            # cuBLAS keeps a workspace per stream (32 MiB on Hopper). Cleared
+            # around the capture, the capture stream's is allocated in the
+            # graph pool and returned to it afterwards, as the pool's other
+            # scratch is, rather than held beside the default stream's.
+            torch._C._cuda_clearCublasWorkspaces()
+            with torch.cuda.stream(self._stream):
+                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+                try:
+                    entry.advance()
+                finally:
+                    graph.capture_end()
+            torch._C._cuda_clearCublasWorkspaces()
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        launched = {name: n - before[name]
+                    for name, n in interface.launch_counts().items() if n != before[name]}
+        interface.credit_launches(launched, -1)
+        interface.count_decode_steps("captures")
+        entry.graph, entry.launches = graph, launched
+
+    def _replay(self, entry: _Step, max_len: int, early_stop: bool) -> int:
+        """Replay ``entry``'s graph once a step until the flag or
+        ``max_len`` stops it; returns the steps run."""
+        def stopped() -> bool:
+            if not early_stop:
+                return False
+            with named_scope("st.decode.stop"):
+                return not bool(entry.go)
+
+        steps = 0
+        done = stopped()
+        while not done:
+            with named_scope("st.decode.step"):
+                entry.graph.replay()
+                interface.credit_launches(entry.launches)
+                interface.count_decode_steps("replays")
+                steps += 1
+                done = steps == max_len or stopped()
+        return steps
+
+    def search(self, model: SpeechTransformer, memory: torch.Tensor,
+               mem_lens: torch.Tensor, *, beam_size: int, max_len: int, alpha: float,
+               int8_kv: bool, early_stop: bool) -> BeamResult:
+        b, k = memory.shape[0], beam_size
+        params = tuple(t.data_ptr() for t in itertools.chain(model.decoder.parameters(),
+                                                             model.decoder.buffers()))
+        if params != self._params:
+            self._drop_graphs()
+            self._params = params
+        key = (b, k, max_len, memory.shape[1], memory.dtype, int8_kv, float(alpha))
+        spec: Spec = {}
+
+        def store(name: str, t: torch.Tensor) -> torch.Tensor:
+            if name == "cache.logits.table_f32":
+                # Not kept: the captured step casts the tied table itself
+                # (~4 µs of device time), and 8.9 MB (``base``) less stays
+                # allocated between calls, beside the next call's encoder.
+                return t
+            spec[name] = (tuple(t.shape), t.stride(), t.dtype)
+            view = self._take(name, *spec[name])
+            view.copy_(t)
+            return view
+
+        with named_scope("st.decode.init_cache"):
+            _, own = split_cache(model.init_cache(
+                memory, max_len, k, int8_kv, store=lambda name, t: store("cache." + name, t)))
+            for name, t in initial_carry(b, k, max_len, self.device, own, True).items():
+                if name != "cache":
+                    store("carry." + name, t)
+            store("mem_lens", mem_lens)
+            store("index", torch.zeros((), dtype=torch.int32, device=self.device))
+            spec["go"] = ((), (), torch.bool)
+            self._specs[key] = spec
+            entry = self._steps.get(key)
+            if entry is None:
+                entry = self._steps[key] = self._build(model, key, spec)
+            if early_stop:   # the test before the first step
+                entry.go.copy_(keep_going(entry.carry, entry.max_lp))
+        if entry.graph is None:   # this shape's first call on this arena
+            def run(c, i):
+                entry.advance()
+                return c
+
+            _, steps = decode_loop(run, entry.carry, max_len, device=self.device,
+                                   stop=(lambda c: not bool(entry.go)) if early_stop else None)
+        else:
+            steps = self._replay(entry, max_len, early_stop)
+        with named_scope("st.decode.finalize"):
+            result = finalize(entry.carry, steps, alpha)
+        if self.device.type == "cuda":
+            self._capture_all(model)
+        return result
+
+    def _capture_all(self, model: SpeechTransformer) -> None:
+        """Capture every shape seen that has no graph on the arena."""
+        for key, spec in self._specs.items():
+            entry = self._steps.get(key)
+            if entry is None:
+                entry = self._steps[key] = self._build(model, key, spec)
+            if entry.graph is None:
+                self._capture(entry)
+
+
+_GRAPHS: "weakref.WeakKeyDictionary[SpeechTransformer, StepGraphs]" = \
+    weakref.WeakKeyDictionary()
+
+
+@torch.no_grad()
+def graph_beam_search(model: SpeechTransformer, memory: torch.Tensor,
+                      mem_lens: torch.Tensor, *, beam_size: int, max_len: int,
+                      alpha: float = 1.0, int8_kv: bool = False,
+                      early_stop: bool = True) -> BeamResult:
+    """``beam.eager_beam_search`` with the lineage table, on the model's
+    static arena (``StepGraphs``, made at the model's first call and
+    dropped with it): on a card each step is a CUDA graph replay after a
+    shape's first call; on the CPU every step runs eagerly."""
+    graphs = _GRAPHS.get(model)
+    if graphs is None or graphs.device != memory.device:
+        graphs = _GRAPHS[model] = StepGraphs(memory.device)
+    return graphs.search(model, memory, mem_lens, beam_size=beam_size, max_len=max_len,
+                         alpha=alpha, int8_kv=int8_kv, early_stop=early_stop)

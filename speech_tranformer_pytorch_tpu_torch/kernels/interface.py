@@ -4,6 +4,11 @@ A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 PyTorch version of the same function. There is no fallback: a kernel that
 fails to build or launch raises. Each kernel wrapper counts its launches;
 ``launch_counts`` reads them and ``reset_launch_counts`` zeroes them.
+Beside them ``decode_step_counts`` counts how decode steps were issued:
+CUDA graphs captured and replayed (``decoding/beam_graph.py``), and steps
+run eagerly (``decoding/beam.decode_loop``). A captured step's launches
+are taken back after its capture and credited at each replay
+(``credit_launches``), so the launch counts stay the kernels the port ran.
 
 The serving kernels (beam prune, lineage attention, the flash forward)
 are reached through their ``torch.library`` custom ops
@@ -198,3 +203,29 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+
+
+def credit_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``counts`` (kernel name -> launches) ``times`` over to the
+    launch counts; a negative ``times`` takes them back."""
+    for name, n in counts.items():
+        _WRAPPERS[name].launches += n * times
+
+
+_DECODE_STEPS = {"captures": 0, "replays": 0, "eager_steps": 0}
+
+
+def count_decode_steps(kind: str, n: int = 1) -> None:
+    """Count ``n`` decode steps issued as ``kind``: "captures" (a step
+    captured as a CUDA graph), "replays" (a graph replayed) or
+    "eager_steps"."""
+    _DECODE_STEPS[kind] += n
+
+
+def decode_step_counts() -> Dict[str, int]:
+    return dict(_DECODE_STEPS)
+
+
+def reset_decode_step_counts() -> None:
+    for kind in _DECODE_STEPS:
+        _DECODE_STEPS[kind] = 0

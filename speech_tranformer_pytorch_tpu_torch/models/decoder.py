@@ -33,7 +33,7 @@ in JAX's GSPMD program, and the caches hold the rank's heads.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -117,10 +117,11 @@ class DecoderLayer(nn.Module):
     def decode_step(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                     index: int, cross_bias: torch.Tensor, beam_width: int,
                     lineage: Optional[torch.Tensor]) -> torch.Tensor:
-        """x [B·K, 1, d] at position ``index``; writes this position's k/v
-        into ``cache`` in place (saves a copy of the cache per step), or,
-        with a 0-d tensor ``index`` (a step traced inside a ``while_loop``,
-        which may not mutate its carry), puts new self K/V tensors in ``cache``.
+        """x [B·K, 1, d] at position ``index`` (an int, or a 0-d int32
+        tensor on the cache's device); writes this position's k/v into
+        ``cache`` in place (saves a copy of the cache per step), or, while
+        ``torch.export`` traces (a step inside a ``while_loop``, which may
+        not mutate its carry), puts new self K/V tensors in ``cache``.
         Self-attention reads the unpermuted cache through ``lineage``, or,
         with ``lineage=None`` (beam search's ``use_lineage=False``, whose
         cache is gathered by beam every step), attends over the cache
@@ -128,10 +129,14 @@ class DecoderLayer(nn.Module):
 
         def self_attend(h):
             q_new, k_new, v_new = self.self_attn.project_qkv(h)   # [B·K,1,H,D]
-            if isinstance(index, torch.Tensor):   # a traced loop may not write its carry
+            if isinstance(index, torch.Tensor):
                 pos = index.reshape(1).long()
-                cache["self_k"] = cache["self_k"].index_copy(1, pos, k_new)
-                cache["self_v"] = cache["self_v"].index_copy(1, pos, v_new)
+                if torch.compiler.is_exporting():   # a traced loop may not write its carry
+                    cache["self_k"] = cache["self_k"].index_copy(1, pos, k_new)
+                    cache["self_v"] = cache["self_v"].index_copy(1, pos, v_new)
+                else:
+                    cache["self_k"].index_copy_(1, pos, k_new)
+                    cache["self_v"].index_copy_(1, pos, v_new)
             else:
                 cache["self_k"][:, index] = k_new[:, 0]
                 cache["self_v"][:, index] = v_new[:, 0]
@@ -250,18 +255,30 @@ class Decoder(nn.Module):
     # ----- step decoding ---------------------------------------------------
 
     def init_cache(self, memory: torch.Tensor, max_len: int,
-                   beam_width: int = 1, int8_kv: bool = False) -> Cache:
+                   beam_width: int = 1, int8_kv: bool = False,
+                   store: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                   ) -> Cache:
         """KV cache for B·beam_width step rows; ``memory`` is untiled [B,S,d].
-        ``int8_kv``: int8 cross K/V (``DecoderLayer.init_layer_cache``)."""
+        ``int8_kv``: int8 cross K/V (``DecoderLayer.init_layer_cache``).
+        ``store(name, tensor)``, given, is handed each tensor as it is made
+        (names ``layer_0.self_k``, ``logits.table_f32``, ...) and returns
+        the tensor the cache holds in its place: a static copy that a
+        captured decode step reads (``decoding/beam_graph.py``). One layer
+        is made at a time, so no second whole cache is alive beside it."""
         if max_len > self.pos_enc.max_len:
             raise ValueError(f"max_len {max_len} exceeds the positional table "
                              f"({self.pos_enc.max_len})")
         b = memory.shape[0] * beam_width
         mem = memory.to(self.dtype)
-        cache = {f"layer_{i}": layer.init_layer_cache(mem, b, max_len, int8_kv)
-                 for i, layer in enumerate(self.layers)}
+        keep = store or (lambda name, t: t)
+        cache = {}
+        for i, layer in enumerate(self.layers):
+            made = layer.init_layer_cache(mem, b, max_len, int8_kv)
+            cache[f"layer_{i}"] = {n: keep(f"layer_{i}.{n}", t) for n, t in made.items()}
+            del made   # a stored layer's own copies go before the next is made
         if self.out_proj is None:   # cast the tied projection once, not per step
-            cache["logits"] = {"table_f32": self._table().float()}
+            cache["logits"] = {"table_f32": keep("logits.table_f32",
+                                                 self._table().float())}
         return cache
 
     def decode_step(self, tokens: torch.Tensor, index, cache: Cache,

@@ -51,8 +51,8 @@ class SpeechTransformer(nn.Module):
         return self.encoder(feats, frame_lens)
 
     def init_cache(self, memory, max_len: int, beam_width: int = 1,
-                   int8_kv: bool = False) -> Cache:
-        return self.decoder.init_cache(memory, max_len, beam_width, int8_kv)
+                   int8_kv: bool = False, store=None) -> Cache:
+        return self.decoder.init_cache(memory, max_len, beam_width, int8_kv, store)
 
     def decode_step(self, tokens, index, cache, mem_lens, beam_width, lineage):
         return self.decoder.decode_step(tokens, index, cache, mem_lens,

@@ -8,9 +8,11 @@ int8 weights and an int8 cross-K/V cache) once to warm
 up, once timed, then once under ``torch.profiler``. Prints one JSON line:
 the wall time, the device's busy time (union of kernel intervals) and idle
 share, kernel launches per decode step, the kernels that take the most
-device time, and for each of the program's spans (``st.*``,
+device time, for each of the program's spans (``st.*``,
 ``utils/profiling.span_stats``) its count, host time, launches per decode
-step and the device time its launches caused. ``chip_smoke.py`` serves
+step and the device time its launches caused, and how the profiled call's
+decode steps were issued (``kernels/interface.decode_step_counts``: graph
+replays, captures, eager steps). ``chip_smoke.py`` serves
 the same batch through ``smoke_batch``, so the trace describes the path
 it measures.
 """
@@ -66,6 +68,7 @@ def main() -> None:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from .kernels import interface
     from .utils.profiling import device_ops, span_stats
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -82,6 +85,7 @@ def main() -> None:
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
 
+    interface.reset_decode_step_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rec.decode_batch(batch.audio, batch.lens, **DECODE)
@@ -108,7 +112,8 @@ def main() -> None:
         "spans": {n: {"count": v.count, "host_ms": v.host_s * 1e3,
                       "launches_per_step": v.launches / max(steps, 1),
                       "device_ms": v.device_s * 1e3}
-                  for n, v in sorted(spans.items())}}}), flush=True)
+                  for n, v in sorted(spans.items())},
+        "decode_step_counts": interface.decode_step_counts()}}), flush=True)
 
 
 if __name__ == "__main__":
