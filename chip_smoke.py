@@ -38,6 +38,10 @@ Phases (any failure exits non-zero before the final line):
      hypotheses, lengths, steps and scores, with exact launches, one
      capture a shape, a replay a step, the memory peak under the build's,
      and an arena grown shape by shape captured again each time;
+     the hybrid CTC/attention search (``ctc_decode``): the CTC prefix
+     kernel against its plain version at the `librispeech` cell's shapes,
+     then graph against eager hybrid searches of that configuration on a
+     batch of each of its buckets, equal, with exact launches;
      then the serving main path: ``Recognizer.decode_batch`` at the ``base``
      preset (full width, bf16, seeded random weights) serving 8 int16
      utterances of 4-6 s with beam 5 and max_len 100, with the kernels'
@@ -1683,7 +1687,9 @@ def overfit_anchor(torch, dev):
 def expected_serve_launches(cfg, steps: int, int8: bool, beam: int, ring: int = 1):
     """Exact kernel launches of one served batch of ``steps`` decode steps
     (beam search, or greedy decoding at ``beam == 1``); an encoder layer on
-    a ring of ``ring`` ranks runs one flash forward per key block."""
+    a ring of ``ring`` ranks runs one flash forward per key block. A hybrid
+    CTC/attention search (``decode.ctc_weight`` > 0) runs its prune as the
+    pre-beam and one CTC prefix scorer a step."""
     from speech_tranformer_pytorch_tpu_torch.kernels import interface
 
     m = cfg.model
@@ -1695,6 +1701,8 @@ def expected_serve_launches(cfg, steps: int, int8: bool, beam: int, ring: int = 
     if int8:   # + the cross K and V projections of init_cache
         want["int8_matmul"] = m.num_decoder_layers * (layer_step * steps + 2)
         want["int8_ffn"] = m.num_decoder_layers * steps
+    if beam > 1 and cfg.decode.ctc_weight > 0.0:
+        want["ctc_prefix"] = steps
     return want
 
 
@@ -1760,11 +1768,12 @@ def main_path(torch, dev, int8: bool = False):
 MIX_BUCKETS = (200, 400, 600, 800, 1000, 1400)   # portbench/mixes/serve.aishell-b8.json
 
 
-def _mix_batches(torch, cfg):
-    """One batch of 8 int16 utterances (seeded) in each length bucket of the
-    serving benchmark's mix, padded to the bucket's boundary as the port
-    pads its batches, with the mix's decode limit (0.128 of the encoder
-    frames, 4 to 100): [(audio, lens, max_len)], the longest first."""
+def _mix_batches(torch, cfg, buckets=MIX_BUCKETS, batch: int = 8, ratio: float = 0.128):
+    """One batch of ``batch`` int16 utterances (seeded) in each length
+    bucket of a serving benchmark's mix (by default the ``base`` cell's),
+    padded to the bucket's boundary as the port pads its batches, with the
+    mix's decode limit (``ratio`` of the encoder frames, 4 to 100):
+    [(audio, lens, max_len)], the longest first."""
     import numpy as np
 
     from speech_tranformer_pytorch_tpu_torch.data.pipeline import _samples_for_frames
@@ -1773,13 +1782,13 @@ def _mix_batches(torch, cfg):
 
     f, sr = cfg.features, cfg.features.sample_rate
     out, low = [], 100
-    for i, top in enumerate(MIX_BUCKETS):
-        audio, lens = make_utterances(8, min_seconds=_samples_for_frames(low + 1, f) / sr,
+    for i, top in enumerate(buckets):
+        audio, lens = make_utterances(batch, min_seconds=_samples_for_frames(low + 1, f) / sr,
                                       max_seconds=_samples_for_frames(top, f) / sr, seed=i)
-        padded = np.zeros((8, _samples_for_frames(top, f)), np.int16)
+        padded = np.zeros((batch, _samples_for_frames(top, f)), np.int16)
         padded[:, :audio.shape[1]] = audio
         enc = int(subsampled_lengths(torch.tensor(top)))
-        out.append((padded, lens, max(4, min(100, int(0.128 * enc)))))
+        out.append((padded, lens, max(4, min(100, int(ratio * enc)))))
         low = top
     return out[::-1]
 
@@ -1923,6 +1932,173 @@ def graph_decode(torch, dev):
         del rec, arena
         beam_graph._GRAPHS.clear()
     emit({"graph_decode": report})
+
+
+# CTC prefix scoring (``kernels/ctc_prefix.py``) at the shape of the
+# `librispeech` cell's longest calls: 16 utterances of up to 749 encoder
+# frames (lengths 749 down to 374), beam 5, pre-beam 7, V 5000, log-probs
+# padded past each utterance's frames as ESPnet pads them. Four steps from
+# the <sos> state (n 0 to 3), each with an <eos> and (from n 1) a repeated
+# candidate, with n given by value and as a device int32 (a captured
+# step's). psi and the states within 1e-3 plus 1e-5 of each value of the
+# plain version (float32 summed in another order: the kernel scans the
+# frames in 32 chunks), bit-identical on a second call. Timed at n 3.
+CTC_SHAPE = (16, 5, 749, 5000)          # batch, beam, encoder frames, vocabulary
+CTC_TOL = (1e-3, 1e-5)                  # atol, rtol
+CTC_BUCKETS = (200, 400, 600, 800, 1000, 1400, 2000, 3000)   # portbench/mixes/serve.ls-b16.json
+CTC_RATIO = 0.14
+
+
+def check_ctc_prefix(torch, dev):
+    from portbench.work.ctc import step_counts
+    from speech_tranformer_pytorch_tpu_torch.kernels import ctc_prefix
+
+    b, k, t, v = CTC_SHAPE
+    p = int(1.5 * k)
+    g = torch.Generator(device=dev).manual_seed(0)
+    lens = torch.linspace(t, t // 2, b, device=dev).round().int()
+    logp = torch.log_softmax(1.5 * torch.randn(b, t, v, generator=g, device=dev), -1)
+    pad = torch.full((v,), ctc_prefix.LOGZERO, device=dev)
+    pad[0] = 0.0
+    valid = torch.arange(t, device=dev)[None, :, None] < lens[:, None, None]
+    logp = torch.where(valid, logp, pad).transpose(1, 2).contiguous()      # [B, V, T]
+    state = torch.stack([torch.full_like(logp[:, 0], ctc_prefix.LOGZERO),
+                         torch.cumsum(logp[:, 0], 1)], 1).repeat_interleave(k, 0)
+    last = torch.ones(b * k, dtype=torch.int32, device=dev)               # <sos>
+    errs, timed = [], None
+    for n in range(4):
+        cand = torch.randint(3, v, (b * k, p), generator=g, device=dev, dtype=torch.int32)
+        cand[:, 0] = 2                                                      # <eos>
+        if n:
+            cand[:, 1] = last                                               # a repeat
+        want = ctc_prefix.ctc_prefix_reference(logp, state, last, cand, n, lens, beams=k)
+        for how, index in (("host", n), ("device", torch.tensor(n, dtype=torch.int32,
+                                                                 device=dev))):
+            got = ctc_prefix.ctc_prefix_cuda(logp, state, last, cand, index, lens, beams=k)
+            again = ctc_prefix.ctc_prefix_cuda(logp, state, last, cand, index, lens, beams=k)
+            torch.cuda.synchronize()
+            name = f"ctc_prefix[n={n},{how}]"
+            err = (check_close(name + ".psi", got[0], want[0], *CTC_TOL),
+                   check_close(name + ".states", got[1], want[1], *CTC_TOL))
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            emit({"check": {"name": name, "max_abs_err": list(err), "second_call_bit_equal": same}})
+            if not same:
+                raise AssertionError(f"{name}: differs on a second call")
+            errs += list(err)
+        timed = (state, last, cand, n)
+        state, last = want[1][:, 2].contiguous(), cand[:, 2].contiguous()
+    state, last, cand, n = timed
+    ms = device_ms(torch, lambda: ctc_prefix.ctc_prefix_cuda(logp, state, last, cand, n, lens,
+                                                             beams=k))
+    plain_ms = device_ms(torch, lambda: ctc_prefix.ctc_prefix_reference(
+        logp, state, last, cand, n, lens, beams=k), reps=2, rounds=3)
+    kernels_per_call = device_kernels_per_call(
+        torch, lambda: ctc_prefix.ctc_prefix_cuda(logp, state, last, cand, n, lens, beams=k))
+    bound_ms, bound_by = bound(*step_counts(lens.tolist(), k, n))
+    rec = dict(name="ctc_prefix", source=f"{PKG}/csrc/ctc_prefix.cu",
+               replaces="none: the port's own (the JAX package has no CTC head)",
+               max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None,
+               library_note="no PyTorch call scores CTC prefixes",
+               device_kernels_per_call=kernels_per_call, shape=[b * k, p, t, v])
+    emit({"check": rec})
+    if kernels_per_call != 1:
+        raise AssertionError(f"ctc_prefix: {kernels_per_call} device kernels a call, not 1")
+    return rec
+
+
+def ctc_decode(torch, dev):
+    """The hybrid CTC/attention search of the `librispeech` cell
+    (``portbench/configs/librispeech.json``: 12 + 6 layers, V 5000, CTC
+    weight 0.4) on a ``Recognizer`` on seeded weights (<eos>'s row zeroed,
+    as the benchmark serves), one batch of 16 in each bucket of the cell's
+    mix: the kernel checked first (``check_ctc_prefix``), then the graph
+    search (``beam_graph.graph_beam_search``, a pass capturing every shape
+    and a pass replaying) against the eager one after the same encoding:
+    hypotheses, lengths, steps and scores equal, every call's launches
+    ``expected_serve_launches`` (one prune and one CTC scorer a step)."""
+    from speech_tranformer_pytorch_tpu_torch.config import config_from_dict
+    from speech_tranformer_pytorch_tpu_torch.data.features import extract_features
+    from speech_tranformer_pytorch_tpu_torch.decoding import beam_graph
+    from speech_tranformer_pytorch_tpu_torch.decoding.beam import eager_beam_search, encode_on
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.models import SpeechTransformer
+    from speech_tranformer_pytorch_tpu_torch.recognize import Recognizer
+
+    rec_kernel = check_ctc_prefix(torch, dev)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench",
+                           "configs", "librispeech.json")) as f:
+        cfg = config_from_dict(json.load(f)["config"]).validate()
+    beam, weight = cfg.decode.beam_size, cfg.decode.ctc_weight
+    model = SpeechTransformer(cfg.model).init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.decoder.embed.weight[2].zero_()
+    rec = Recognizer(cfg, {k: t.to(dev) for k, t in model.state_dict().items()}, device=dev)
+    del model
+    batches = _mix_batches(torch, cfg, CTC_BUCKETS, CTC_SHAPE[0], CTC_RATIO)
+    encoded, total = {}, {k: 0 for k in interface.launch_counts()}
+
+    def serve(fn, i):
+        audio, lens, max_len = batches[i]
+        interface.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            feats, flens = extract_features(audio, lens, cfg.features, device=dev)
+            memory, mem_lens = encode_on(rec.model, feats, flens, dev)
+            first, first_lens = encoded.setdefault(i, (memory, mem_lens))
+            r = fn(rec.model, first, first_lens, beam_size=beam, max_len=max_len, alpha=1.0,
+                   ctc_weight=weight)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = interface.launch_counts()
+        want = expected_serve_launches(cfg, r.steps, False, beam)
+        if r.steps <= 0 or counts != want:
+            raise AssertionError(f"{fn.__name__}: launch counts {counts}, expected {want}")
+        for name, c in counts.items():
+            total[name] += c
+        return r, wall
+
+    def run_pass(fn):
+        interface.reset_decode_step_counts()
+        out = {i: serve(fn, i) for i in range(len(batches))}
+        return out, interface.decode_step_counts()
+
+    first, first_counts = run_pass(beam_graph.graph_beam_search)
+    replayed, replay_counts = run_pass(beam_graph.graph_beam_search)
+    eager, eager_counts = run_pass(eager_beam_search)
+    steps = sum(r.steps for r, _ in eager.values())
+    want_counts = [{"captures": len(batches), "replays": 0, "eager_steps": steps},
+                   {"captures": 0, "replays": steps, "eager_steps": 0},
+                   {"captures": 0, "replays": 0, "eager_steps": steps}]
+    if [first_counts, replay_counts, eager_counts] != want_counts:
+        raise AssertionError(f"decode step counts {first_counts}, {replay_counts}, "
+                             f"{eager_counts}; expected {want_counts}")
+    differ = []
+    for i, (e, _) in eager.items():
+        for tag, (g, _) in (("first", first[i]), ("replayed", replayed[i])):
+            if (g.steps != e.steps or not torch.equal(g.tokens, e.tokens)
+                    or not torch.equal(g.lengths, e.lengths)
+                    or not torch.equal(g.scores, e.scores)):
+                differ.append({"pass": tag, "samples": int(batches[i][0].shape[1]),
+                               "steps": [g.steps, e.steps],
+                               "score_diff": float((g.scores - e.scores).abs().max()),
+                               "tokens_equal": bool(torch.equal(g.tokens, e.tokens))})
+    if differ:
+        raise AssertionError(f"hybrid graph and eager decodes differ: {differ}")
+    arena = beam_graph._GRAPHS[rec.model]
+    emit({"ctc_decode": {
+        "preset": "librispeech", "ctc_weight": weight, "steps": steps,
+        "decode_step_counts": want_counts,
+        "arena_bytes": sum(x.numel() * x.element_size() for x in arena._buffers.values()),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "finite": all(bool(torch.isfinite(r.scores).all()) for r, _ in eager.values()),
+        "shapes": [{"samples": int(batches[i][0].shape[1]), "max_len": batches[i][2],
+                    "steps": eager[i][0].steps, "eager_s": eager[i][1],
+                    "first_s": first[i][1], "replayed_s": replayed[i][1]}
+                   for i in range(len(batches))]}})
+    del rec, arena
+    beam_graph._GRAPHS.clear()
+    return rec_kernel, total
 
 
 def card_vs_cpu(torch, dev, params, audio, lens, int8: bool = False):
@@ -3178,7 +3354,7 @@ def parallel_path(torch, dev):
 
 CHECKS = ("check_fbank", "check_beam_prune", "check_lineage", "check_flash",
           "check_ring_blocks", "check_adam", "check_int8_matmul", "check_int8_ffn")
-PHASES = CHECKS + ("graph_decode", "main_path", "export_path", "card_vs_cpu", "int8_path",
+PHASES = CHECKS + ("graph_decode", "ctc_decode", "main_path", "export_path", "card_vs_cpu", "int8_path",
                    "int8_card_vs_cpu", "train_path", "large_train_path",
                    "train_card_vs_cpu", "overfit_anchor", "manifest_path", "pipeline_path",
                    "drive_recipe", "parallel_path")
@@ -3227,10 +3403,15 @@ def main() -> int:
         t0 = time.perf_counter()
         graph_decode(torch, dev)
         emit({"phase_s": {"graph_decode": time.perf_counter() - t0}})
-    counts = {"serve": {}, "export": {}, "serve_int8": {}, "train": {}, "large": {},
+    counts = {"serve": {}, "export": {}, "serve_int8": {}, "ctc": {}, "train": {}, "large": {},
               "large_master": {},
               "large_trainer": {}, "librispeech": {}, "manifest": {}, "pipeline": {},
               "recipe": {}, "parallel": {}}
+    if "ctc_decode" in phases:
+        t0 = time.perf_counter()
+        rec, counts["ctc"] = ctc_decode(torch, dev)
+        recs.append(rec)
+        emit({"phase_s": {"ctc_decode": time.perf_counter() - t0}})
     for path, int8 in (("serve", False), ("serve_int8", True)):
         name = "int8_path" if int8 else "main_path"
         if name in phases:

@@ -10,6 +10,13 @@ the port reads only the ones its modules implement. ``scan_layers`` (JAX's
 weight-stacked ``nn.scan`` over the encoder layers, a compile-time lever)
 is read only by ``convert.py``, which unstacks such a tree; the port always
 builds its layers one by one.
+
+The port adds fields of its own (``PORT_ONLY``), off by default: the CTC
+head of the hybrid CTC/attention model (``model.ctc_head``), the CTC share
+of the training loss (``train.ctc_weight``, ESPnet's ``mtlalpha``) and of
+the beam search's scores (``decode.ctc_weight``). ``jax_dict()`` is
+``to_dict()`` without them where they hold their defaults, and the hashes
+are taken over it, so a preset's hashes stay the JAX package's.
 """
 
 from __future__ import annotations
@@ -103,6 +110,7 @@ class ModelConfig(_Replace):
     attention_remat: bool = False
     scan_layers: bool = False      # JAX-only; the port reads it in convert.py
     attention_bf16_weights: bool = True
+    ctc_head: bool = False         # port only: a CTC head (Linear d_model -> V) on the encoder
 
     @property
     def head_dim(self) -> int:
@@ -135,6 +143,7 @@ class TrainConfig(_Replace):
     keep_checkpoints: int = 5
     eval_every_steps: int = 2000
     dev_decode_batches: int = 4
+    ctc_weight: float = 0.0            # port only: the CTC share of the loss (needs model.ctc_head)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +171,7 @@ class DecodeConfig(_Replace):
     max_len_ratio: float = 0.0
     int8_weights: bool = False
     int8_kv_cache: bool = False
+    ctc_weight: float = 0.0            # port only: CTC prefix scores' share (model.ctc_head)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,18 +195,24 @@ class ExperimentConfig:
     def to_dict(self) -> dict:
         return _asdict(self)
 
+    def jax_dict(self) -> dict:
+        """``to_dict()`` without the ``PORT_ONLY`` fields that hold their
+        defaults: the JAX package's ``to_dict()`` of a config without them."""
+        return drop_port_only(self.to_dict())
+
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), indent=2, sort_keys=True)
 
     def config_hash(self) -> str:
-        return hashlib.sha256(self.to_json().encode()).hexdigest()[:16]
+        payload = json.dumps(self.jax_dict(), indent=2, sort_keys=True)
+        return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
     def model_hash(self) -> str:
         """Hash of the checkpoint-compatibility surface only (architecture +
         features)."""
-        payload = json.dumps(
-            {"model": _asdict(self.model), "features": _asdict(self.features)},
-            sort_keys=True)
+        d = self.jax_dict()
+        payload = json.dumps({"model": d["model"], "features": d["features"]},
+                             sort_keys=True)
         return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
     def replace(self, **kw) -> "ExperimentConfig":
@@ -254,6 +270,11 @@ class ExperimentConfig:
         if m.attention_impl not in ("auto", "dot", "flash", "ring"):
             errs.append(f"model.attention_impl {m.attention_impl!r} not in "
                         f"('auto', 'dot', 'flash', 'ring')")
+        for section, w in (("train", t.ctc_weight), ("decode", self.decode.ctc_weight)):
+            if not 0.0 <= w <= 1.0:
+                errs.append(f"{section}.ctc_weight {w} not in [0, 1]")
+            elif w > 0.0 and not m.ctc_head:
+                errs.append(f"{section}.ctc_weight {w} needs model.ctc_head=True")
         if m.attention_impl == "ring" and m.attention_dropout_rate > 0.0:
             errs.append("attention_impl='ring' does not support attention "
                         "dropout (set model.attention_dropout_rate=0.0)")
@@ -263,6 +284,22 @@ class ExperimentConfig:
         if errs:
             raise ValueError("invalid config:\n  - " + "\n  - ".join(errs))
         return self
+
+
+# Fields the JAX package does not have, with their defaults.
+PORT_ONLY = {"model": {"ctc_head": False}, "train": {"ctc_weight": 0.0},
+             "decode": {"ctc_weight": 0.0}}
+
+
+def drop_port_only(d: dict) -> dict:
+    """A copy of a ``to_dict()`` without the ``PORT_ONLY`` fields that hold
+    their defaults."""
+    out = {key: dict(v) if isinstance(v, dict) else v for key, v in d.items()}
+    for section, fields in PORT_ONLY.items():
+        for name, default in fields.items():
+            if out.get(section, {}).get(name, default) == default:
+                out.get(section, {}).pop(name, None)
+    return out
 
 
 def config_from_dict(d: dict) -> ExperimentConfig:

@@ -18,6 +18,19 @@ fixed-trip loop that ``serving.export_recognizer`` exports, with the same
 results. Every top-k uses ``topk_stable``, whose tie order is
 ``jax.lax.top_k``'s.
 
+With ``ctc_weight`` λ > 0 (``decode.ctc_weight``, a model with a CTC
+head) the search is ESPnet's hybrid CTC/attention beam search: each alive
+hypothesis keeps its P = int(1.5 K) best tokens by attention log-prob (the
+pre-beam, through the same prune kernel at one beam a row), each of them
+scores alive + (1 − λ)·log p_att(c) + λ·(ψ(g·c) − ψ(g)) with ψ the CTC
+prefix score (``kernels/interface.ctc_prefix_scores``), and the same
+finished/alive bookkeeping runs over the K·P candidates of an utterance.
+Each hypothesis carries its CTC state over the encoder frames and its ψ,
+which follow the chosen parent every step (``ctc_carry``); the log-probs
+and the <sos> state are computed once a call (``ctc_prepare``). Both parts
+of a score only fall, so the early stop stays exact. Greedy search, export,
+a mesh and int8 serving have no CTC scorer and refuse λ > 0.
+
 On a card, with the lineage table, a model without a mesh and nothing
 being exported, ``beam_search`` replays each step as a CUDA graph
 (``decoding/beam_graph.py``); everywhere else it runs
@@ -28,13 +41,14 @@ give the same results.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, NamedTuple, Optional
 
 import torch
 
 from ..data.tokenizer import EOS, PAD, SOS
 from ..device import DeviceLike, resolve_device
 from ..kernels import interface
+from ..kernels.ctc_prefix import LOGZERO
 from ..models import SpeechTransformer
 from ..ops.masks import NEG_INF
 from ..ops.topk import topk_stable
@@ -141,10 +155,44 @@ def decode_loop(step, carry, max_len: int, *, device, stop=None):
     return carry, steps
 
 
-def initial_carry(b: int, k: int, max_len: int, device, own, use_lineage: bool) -> dict:
+class CTCPrefix(NamedTuple):
+    """The CTC side of a hybrid search, fixed for a call."""
+    logp: torch.Tensor      # [B, V, T'] f32 log-probs, frames last
+    lens: torch.Tensor      # [B] int32 valid frames
+    weight: float           # λ, the CTC share of a candidate's score
+
+
+def pre_beam_size(k: int) -> int:
+    """Tokens a hypothesis keeps by attention log-prob before CTC scoring
+    (ESPnet's ``pre_beam_ratio`` 1.5)."""
+    return int(1.5 * k)
+
+
+def ctc_prepare(model: SpeechTransformer, memory: torch.Tensor, mem_lens: torch.Tensor):
+    """(log-probs [B, V, T'] frames last, valid lengths int32 [B], the
+    <sos> state [B, 2, T']: rⁿ = log 0, rᵇ_t = Σ_{τ<=t} x_τ(blank)), once
+    a call."""
+    with named_scope("st.ctc.init"):
+        logp = model.ctc_log_probs(memory, mem_lens)            # [B, T', V]
+        blank = logp[:, :, PAD]
+        state = torch.stack([torch.full_like(blank, LOGZERO), torch.cumsum(blank, 1)], 1)
+        return logp.transpose(1, 2).contiguous(), mem_lens.to(torch.int32), state
+
+
+def ctc_carry(psi: torch.Tensor, states: torch.Tensor, sel: torch.Tensor):
+    """The chosen candidates' ψ [B, K] and states [B·K, 2, T'], gathered
+    from every candidate's (``psi`` [B, N], ``states`` [B, N, 2, T']) by
+    ``sel`` [B, K]: each state follows its parent."""
+    return _take(psi, sel), _take(states, sel).flatten(0, 1)
+
+
+def initial_carry(b: int, k: int, max_len: int, device, own, use_lineage: bool,
+                  ctc_state: Optional[torch.Tensor] = None) -> dict:
     """The search's state before step 0, holding the self-attention K/V
     ``own``: <sos> for every beam, with only beam 0 live (all beams would
-    be identical), empty pools, and the identity lineage table."""
+    be identical), empty pools, and the identity lineage table; with
+    ``ctc_state`` ([B, 2, T'], ``ctc_prepare``'s) every beam's CTC state
+    and ψ = 0."""
     i32 = dict(dtype=torch.int32, device=device)
     carry = dict(
         cur_tokens=torch.full((b, k), SOS, **i32),
@@ -157,28 +205,56 @@ def initial_carry(b: int, k: int, max_len: int, device, own, use_lineage: bool) 
         # lineage[b, k, j]: the cache lane holding beam k's step-j key/value.
         carry["lineage"] = torch.arange(k, **i32)[None, :, None].expand(
             b, k, max_len).clone()
+    if ctc_state is not None:
+        carry["ctc_state"] = ctc_state.repeat_interleave(k, 0)
+        carry["ctc_psi"] = torch.zeros((b, k), device=device)
     return carry
 
 
 def beam_step(model: SpeechTransformer, const, mem_lens: torch.Tensor, *, b: int, k: int,
-              max_len: int, alpha: float, use_lineage: bool, device):
+              max_len: int, alpha: float, use_lineage: bool, device,
+              ctc: Optional[CTCPrefix] = None):
     """Beam search's step: ``step(carry, i)`` runs step ``i`` (an int, or a
     0-d int32 tensor on ``device``) from ``carry`` (``initial_carry``'s
     keys) and returns the next carry: the decoder step over the cache held
     as ``split_cache`` parts (``const``, and the carry's own self K/V, which
-    the step writes in place), then the prune and the beam bookkeeping."""
+    the step writes in place), then the prune and the beam bookkeeping;
+    with ``ctc``, the pre-beam, CTC prefix scoring and the bookkeeping over
+    the K·P candidates (module docstring)."""
     i32 = dict(dtype=torch.int32, device=device)
     identity = torch.arange(k, **i32)[None, :, None].expand(b, k, max_len)
     positions = torch.arange(max_len, device=device)[None, None, :]
+    if ctc is not None:
+        n_pre = pre_beam_size(k)
+        no_alive = torch.zeros((b * k, 1), device=device)   # the pre-beam's row scores
+
+    def candidates(c, i, logits):
+        """(scores [B, 2K], parent beams, tokens, and with ``ctc`` every
+        candidate's ψ [B, K·P], states and flat index [B, 2K])."""
+        v = logits.shape[-1]
+        if ctc is None:
+            top_scores, top_idx = interface.beam_candidate_topk(
+                logits, c["alive_scores"], k2=2 * k, pad_id=PAD, sos_id=SOS)
+            top_idx = top_idx.long()
+            return (top_scores, torch.div(top_idx, v, rounding_mode="floor"),
+                    (top_idx % v).to(torch.int32), None)
+        att, tok = interface.beam_candidate_topk(logits, no_alive, k2=n_pre,
+                                                 pad_id=PAD, sos_id=SOS)   # [B·K, P]
+        with named_scope("st.decode.ctc"):
+            psi, states = interface.ctc_prefix_scores(
+                ctc.logp, c["ctc_state"], c["cur_tokens"].reshape(b * k), tok, i, ctc.lens,
+                beams=k, blank=PAD, eos=EOS)
+        cand = (c["alive_scores"].reshape(b * k, 1) + (1.0 - ctc.weight) * att
+                + ctc.weight * (psi - c["ctc_psi"].reshape(b * k, 1)))
+        top_scores, flat = topk_stable(cand.reshape(b, k * n_pre), 2 * k)
+        states = states.reshape((b, k * n_pre) + states.shape[2:])
+        return (top_scores, torch.div(flat, n_pre, rounding_mode="floor"),
+                torch.gather(tok.reshape(b, k * n_pre), 1, flat),
+                (psi.reshape(b, k * n_pre), states, flat))
 
     def search(c, i, logits, own):
         # The prune and the beam bookkeeping of step i.
-        v = logits.shape[-1]
-        top_scores, top_idx = interface.beam_candidate_topk(
-            logits, c["alive_scores"], k2=2 * k, pad_id=PAD, sos_id=SOS)
-        top_idx = top_idx.long()
-        top_beam = torch.div(top_idx, v, rounding_mode="floor")
-        top_tok = (top_idx % v).to(torch.int32)
+        top_scores, top_beam, top_tok, scored = candidates(c, i, logits)
 
         seqs = torch.where(positions == i, top_tok[:, :, None],        # [B, 2K, L]
                            _take(c["alive_tokens"], top_beam))
@@ -202,6 +278,11 @@ def beam_step(model: SpeechTransformer, const, mem_lens: torch.Tensor, *, b: int
         out["alive_tokens"] = _take(seqs, alive_sel)
         out["cur_tokens"] = _take(top_tok, alive_sel)
         src_beam = _take(top_beam, alive_sel)                  # [B, K]
+        if scored is not None:
+            psi, states, flat = scored
+            with named_scope("st.decode.ctc"):
+                out["ctc_psi"], out["ctc_state"] = ctc_carry(psi, states,
+                                                             _take(flat, alive_sel))
 
         if use_lineage:
             # Compose the beam permutation into the lineage table: columns
@@ -255,6 +336,23 @@ def finalize(c, steps: int, alpha: float) -> BeamResult:
                       scores=final_scores, steps=steps)
 
 
+def check_ctc_search(model: SpeechTransformer, int8: bool) -> None:
+    """Raise where a hybrid CTC/attention search (``ctc_weight`` > 0) has
+    no path: a model without a CTC head, a mesh, export, int8 serving."""
+    if model.ctc is None:
+        raise ValueError("decode.ctc_weight > 0 needs a model with a CTC head "
+                         "(model.ctc_head=True)")
+    if model.decoder.mesh is not None:
+        raise ValueError("decode.ctc_weight > 0 is single-device: CTC prefix scoring "
+                         "has no tensor-parallel path")
+    if torch.compiler.is_exporting():
+        raise ValueError("decode.ctc_weight > 0 cannot be exported: the exported "
+                         "decode loop has no CTC prefix scorer")
+    if int8:
+        raise ValueError("decode.ctc_weight > 0 has no int8 serving path: turn "
+                         "decode.int8_weights and decode.int8_kv_cache off")
+
+
 def replays_graphs(model: SpeechTransformer, memory, max_len: int,
                    use_lineage: bool) -> bool:
     """Whether ``beam_search`` replays its steps as CUDA graphs: for memory
@@ -277,12 +375,15 @@ def beam_search(
     int8_kv: bool = False,
     early_stop: bool = True,
     use_lineage: bool = True,
+    ctc_weight: float = 0.0,
 ) -> BeamResult:
     """Beam search over encoded ``memory``: replayed as CUDA graphs where
     ``replays_graphs`` (``beam_graph.graph_beam_search``), else
-    ``eager_beam_search``."""
+    ``eager_beam_search``; hybrid CTC/attention with ``ctc_weight`` > 0."""
+    if ctc_weight > 0.0:
+        check_ctc_search(model, int8_kv)
     kw = dict(beam_size=beam_size, max_len=max_len, alpha=alpha, int8_kv=int8_kv,
-              early_stop=early_stop)
+              early_stop=early_stop, ctc_weight=ctc_weight)
     if replays_graphs(model, memory, max_len, use_lineage):
         from .beam_graph import graph_beam_search
 
@@ -302,6 +403,7 @@ def eager_beam_search(
     int8_kv: bool = False,
     early_stop: bool = True,
     use_lineage: bool = True,
+    ctc_weight: float = 0.0,
 ) -> BeamResult:
     """Beam search issuing every step's kernels from Python
     (``decode_loop``), with the step index a Python int."""
@@ -309,9 +411,13 @@ def eager_beam_search(
     dev = memory.device
     with named_scope("st.decode.init_cache"):
         const, own = split_cache(model.init_cache(memory, max_len, k, int8_kv))
-    carry = initial_carry(b, k, max_len, dev, own, use_lineage)
+    ctc, sos_state = None, None
+    if ctc_weight > 0.0:
+        logp, lens, sos_state = ctc_prepare(model, memory, mem_lens)
+        ctc = CTCPrefix(logp, lens, float(ctc_weight))
+    carry = initial_carry(b, k, max_len, dev, own, use_lineage, sos_state)
     step = beam_step(model, const, mem_lens, b=b, k=k, max_len=max_len, alpha=alpha,
-                     use_lineage=use_lineage, device=dev)
+                     use_lineage=use_lineage, device=dev, ctc=ctc)
     done = None
     if early_stop:
         max_lp = stop_bound(max_len, alpha, dev)
@@ -337,13 +443,15 @@ def beam_decode(
     device: DeviceLike = None,
     early_stop: bool = True,
     use_lineage: bool = True,
+    ctc_weight: float = 0.0,
 ) -> BeamResult:
     """Encode + beam search on ``device`` (CUDA unless the caller asks for
     the CPU); the model must already live there."""
     memory, mem_lens = encode_on(model, feats, frame_lens, device)
     return beam_search(model, memory, mem_lens, beam_size=beam_size,
                        max_len=max_len, alpha=alpha, int8_kv=int8_kv,
-                       early_stop=early_stop, use_lineage=use_lineage)
+                       early_stop=early_stop, use_lineage=use_lineage,
+                       ctc_weight=ctc_weight)
 
 
 def encode_on(model: SpeechTransformer, feats, frame_lens, device: DeviceLike):

@@ -18,7 +18,10 @@ tensor of the search's state and caches (the tied output table aside,
 which the step casts to float32 itself), each sized for the largest step
 shape seen so far. A step shape (batch, beam, max_len, encoder frames,
 dtype, int8 cross cache, alpha) takes views of them, so one arena serves
-every shape, and every capture shares one graph memory pool. A call
+every shape, and every capture shares one graph memory pool. A hybrid
+CTC/attention search (``ctc_weight`` > 0) keeps its CTC log-probs,
+valid lengths and the hypotheses' CTC states and ψ there too, and the
+captured step holds the CTC prefix scorer. A call
 writes its initial state and caches into its views (what the eager search
 starts from, nothing left of an earlier call), then
 
@@ -53,8 +56,8 @@ import torch
 from ..kernels import interface
 from ..models import SpeechTransformer
 from ..utils.profiling import named_scope
-from .beam import (BeamResult, beam_step, decode_loop, finalize, initial_carry,
-                   keep_going, split_cache, stop_bound)
+from .beam import (BeamResult, CTCPrefix, beam_step, ctc_prepare, decode_loop, finalize,
+                   initial_carry, keep_going, split_cache, stop_bound)
 
 # name -> (shape, strides, dtype) of each tensor a step shape keeps in the arena
 Spec = Dict[str, Tuple[Tuple[int, ...], Tuple[int, ...], torch.dtype]]
@@ -109,8 +112,10 @@ class StepGraphs:
 
     def _build(self, model: SpeechTransformer, key: tuple, spec: Spec) -> _Step:
         """The views of ``spec`` and the step that advances them."""
-        b, k, max_len, _, _, _, alpha = key
+        b, k, max_len, _, _, _, alpha, ctc_weight = key
         views = {name: self._take(name, *layout) for name, layout in spec.items()}
+        ctc = (CTCPrefix(views["ctc.logp"], views["ctc.lens"], ctc_weight)
+               if ctc_weight > 0.0 else None)
         cache: dict = {}
         for name, view in views.items():
             if name.startswith("cache."):
@@ -125,7 +130,7 @@ class StepGraphs:
         # A proxy: the steps live as long as the model, and must not keep it.
         step = beam_step(weakref.proxy(model), const, views["mem_lens"], b=b, k=k,
                          max_len=max_len, alpha=alpha, use_lineage=True,
-                         device=self.device)
+                         device=self.device, ctc=ctc)
 
         def advance() -> None:
             nxt = step(carry, index)
@@ -189,14 +194,15 @@ class StepGraphs:
 
     def search(self, model: SpeechTransformer, memory: torch.Tensor,
                mem_lens: torch.Tensor, *, beam_size: int, max_len: int, alpha: float,
-               int8_kv: bool, early_stop: bool) -> BeamResult:
+               int8_kv: bool, early_stop: bool, ctc_weight: float = 0.0) -> BeamResult:
         b, k = memory.shape[0], beam_size
         params = tuple(t.data_ptr() for t in itertools.chain(model.decoder.parameters(),
                                                              model.decoder.buffers()))
         if params != self._params:
             self._drop_graphs()
             self._params = params
-        key = (b, k, max_len, memory.shape[1], memory.dtype, int8_kv, float(alpha))
+        key = (b, k, max_len, memory.shape[1], memory.dtype, int8_kv, float(alpha),
+               float(ctc_weight))
         spec: Spec = {}
 
         def store(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -213,7 +219,14 @@ class StepGraphs:
         with named_scope("st.decode.init_cache"):
             _, own = split_cache(model.init_cache(
                 memory, max_len, k, int8_kv, store=lambda name, t: store("cache." + name, t)))
-            for name, t in initial_carry(b, k, max_len, self.device, own, True).items():
+            sos_state = None
+            if ctc_weight > 0.0:
+                logp, lens, sos_state = ctc_prepare(model, memory, mem_lens)
+                store("ctc.logp", logp)
+                store("ctc.lens", lens)
+                del logp
+            for name, t in initial_carry(b, k, max_len, self.device, own, True,
+                                         sos_state).items():
                 if name != "cache":
                     store("carry." + name, t)
             store("mem_lens", mem_lens)
@@ -258,7 +271,7 @@ _GRAPHS: "weakref.WeakKeyDictionary[SpeechTransformer, StepGraphs]" = \
 def graph_beam_search(model: SpeechTransformer, memory: torch.Tensor,
                       mem_lens: torch.Tensor, *, beam_size: int, max_len: int,
                       alpha: float = 1.0, int8_kv: bool = False,
-                      early_stop: bool = True) -> BeamResult:
+                      early_stop: bool = True, ctc_weight: float = 0.0) -> BeamResult:
     """``beam.eager_beam_search`` with the lineage table, on the model's
     static arena (``StepGraphs``, made at the model's first call and
     dropped with it): on a card each step is a CUDA graph replay after a
@@ -267,4 +280,5 @@ def graph_beam_search(model: SpeechTransformer, memory: torch.Tensor,
     if graphs is None or graphs.device != memory.device:
         graphs = _GRAPHS[model] = StepGraphs(memory.device)
     return graphs.search(model, memory, mem_lens, beam_size=beam_size, max_len=max_len,
-                         alpha=alpha, int8_kv=int8_kv, early_stop=early_stop)
+                         alpha=alpha, int8_kv=int8_kv, early_stop=early_stop,
+                         ctc_weight=ctc_weight)

@@ -71,6 +71,9 @@ SIGNATURES = {
     # weight_decay, bf16_moments, stream
     "st_fused_adam": [_P, _I, _L, _P, _F, _F, _F, _F, _F, _F, _I, _P],
     "st_fused_adam_master": [_P, _I, _L, _P, _F, _F, _F, _F, _F, _F, _I, _P],
+    # logp, state, last, cand, lens, psi, out, rows, pre_beam, beams, vocab,
+    # frames, n, n_dev (a device int32, or null to read n), blank, eos, stream
+    "st_ctc_prefix": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
     # x, wq, scale, y, m, k, n, ldx, rows, k_chunk, is_bf16, stream
     "st_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P],
     # x, w1q, s1, b1, w2q, s2, b2, y, partial, counters, m, k, ff, n, ldx,

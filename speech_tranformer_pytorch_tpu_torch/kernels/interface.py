@@ -23,7 +23,8 @@ from typing import Dict, List, Optional
 import torch
 
 from ..ops import masks
-from . import beam_prune, custom_ops, flash_attention as flash, fused_adam as adam
+from . import beam_prune, ctc_prefix, custom_ops, flash_attention as flash
+from . import fused_adam as adam
 from . import int8_ffn as ffn8, int8_matmul as mm8
 from . import lineage_attention as lineage, stft_mel
 
@@ -38,6 +39,7 @@ _WRAPPERS = {
     "fused_adam_master": adam.fused_adam_master_cuda,
     "int8_matmul": mm8.int8_matmul_cuda,
     "int8_ffn": ffn8.int8_ffn_cuda,
+    "ctc_prefix": ctc_prefix.ctc_prefix_cuda,
 }
 
 
@@ -70,6 +72,18 @@ def lineage_attention(q_new, self_k, self_v, lineage_table, index, beam_width):
         index = torch.tensor(index, dtype=torch.int32)
     return custom_ops.lineage_attention(q_new, self_k, self_v, lineage_table, index,
                                         int(beam_width))
+
+
+def ctc_prefix_scores(logp, state, last, cand, index, lens, *, beams: int,
+                      blank: int = 0, eos: int = 2):
+    """CTC prefix scores and states of every candidate of one beam step
+    (kernels/ctc_prefix.py): (ψ [R, P], states [R, P, 2, T]) from the
+    log-probs [B, V, T], the hypotheses' states [R, 2, T] and last tokens
+    [R], the candidates [R, P] and the step ``index`` (an int or a 0-d
+    int32 tensor)."""
+    fn = (ctc_prefix.ctc_prefix_cuda if _on_cuda(logp)
+          else ctc_prefix.ctc_prefix_reference)
+    return fn(logp, state, last, cand, index, lens, beams=beams, blank=blank, eos=eos)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

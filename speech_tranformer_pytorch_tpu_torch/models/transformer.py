@@ -1,5 +1,12 @@
 """SpeechTransformer — the encoder-decoder assembly (counterpart of the JAX
-package's ``models/transformer.py``)."""
+package's ``models/transformer.py``).
+
+With ``model.ctc_head`` (the port's own field) the model is the hybrid
+CTC/attention Transformer (Watanabe et al., 2017; ESPnet's LibriSpeech
+recipe): a CTC head, one Linear d_model -> V over the encoder output,
+whose blank is the pad id 0. ``ctc_log_probs`` gives its float32
+log-softmax; the train step weighs its loss in (``train.ctc_weight``) and
+the beam search its prefix scores (``decode.ctc_weight``)."""
 
 from __future__ import annotations
 
@@ -10,8 +17,12 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..kernels.ctc_prefix import LOGZERO
+from ..ops import masks as mask_ops
 from .decoder import Cache, Decoder
 from .encoder import Encoder
+
+CTC_BLANK = 0        # the pad id, as ESPnet's blank is id 0
 
 
 class SpeechTransformer(nn.Module):
@@ -32,20 +43,43 @@ class SpeechTransformer(nn.Module):
             if bad:
                 raise ValueError(f"tensor parallelism over {tp} ranks needs "
                                  f"{', '.join(bad)} divisible by {tp}")
+            if cfg.ctc_head:
+                raise ValueError("model.ctc_head is single-device: the CTC head "
+                                 "has no tensor-parallel form")
         self.cfg = cfg
         self.mesh = mesh
         self.encoder = Encoder(cfg, mesh)
         self.decoder = Decoder(cfg, mesh)
+        self.ctc = nn.Linear(cfg.d_model, cfg.vocab_size) if cfg.ctc_head else None
 
     def forward(self, feats, frame_lens, targets_in, tgt_lens, *,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, ctc: bool = False):
         """Teacher-forced forward; returns logits [B, U, V] (f32).
         ``deterministic=False`` turns dropout on, its bits drawn from
-        ``generator``."""
+        ``generator``. ``ctc=True`` returns (logits, the CTC log-probs
+        [B, T', V] of ``ctc_log_probs``, the encoder's lengths)."""
         kw = dict(deterministic=deterministic, generator=generator)
         memory, mem_lens = self.encoder(feats, frame_lens, **kw)
-        return self.decoder(targets_in, tgt_lens, memory, mem_lens, **kw)
+        logits = self.decoder(targets_in, tgt_lens, memory, mem_lens, **kw)
+        if ctc:
+            return logits, self.ctc_log_probs(memory, mem_lens), mem_lens
+        return logits
+
+    def ctc_log_probs(self, memory: torch.Tensor, mem_lens: torch.Tensor) -> torch.Tensor:
+        """float32 [B, T', V] log-softmax of the CTC head over ``memory``
+        (compute-dtype operands, float32 products and sums, as the decoder's
+        logits). Frames past ``mem_lens`` read as ESPnet pads them: blank
+        with log-prob 0, every other id log 0 (``kernels/ctc_prefix.LOGZERO``)."""
+        if self.ctc is None:
+            raise ValueError("the model has no CTC head (model.ctc_head=False)")
+        logits = torch.addmm(self.ctc.bias.float(), memory.flatten(0, 1).float(),
+                             self.ctc.weight.float().t()).unflatten(0, memory.shape[:2])
+        logp = torch.log_softmax(logits, dim=-1)
+        pad = torch.full((logp.shape[-1],), LOGZERO, device=logp.device)
+        pad[CTC_BLANK] = 0.0
+        valid = mask_ops.length_mask(mem_lens, logp.shape[1])[..., None]
+        return torch.where(valid, logp, pad)
 
     def encode(self, feats, frame_lens) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.encoder(feats, frame_lens)

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.nn import functional as F
 
 
 def label_smoothed_ce_sums(logits: torch.Tensor, targets: torch.Tensor, *,
@@ -44,6 +45,16 @@ def label_smoothed_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *,
                                                pad_id=pad_id)
     token_count = torch.clamp(weights, min=1.0)
     return loss_sum / token_count, token_count
+
+
+def ctc_loss_sum(log_probs: torch.Tensor, input_lens: torch.Tensor, targets: torch.Tensor,
+                 target_lens: torch.Tensor, *, blank: int = 0) -> torch.Tensor:
+    """Sum over the batch of -log p(y | x) under CTC (the port's own loss:
+    the JAX package has no CTC head). ``log_probs`` [B, T, V] f32, the
+    first ``target_lens`` of each row of ``targets`` [B, U] the labels; a
+    label sequence no alignment fits adds 0 (``zero_infinity``)."""
+    return F.ctc_loss(log_probs.transpose(0, 1), targets.long(), input_lens.long(),
+                      target_lens.long(), blank=blank, reduction="sum", zero_infinity=True)
 
 
 def token_accuracy_sums(logits: torch.Tensor, targets: torch.Tensor, *,

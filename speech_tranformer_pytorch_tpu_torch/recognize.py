@@ -26,6 +26,7 @@ from .data.pipeline import (BucketedBatcher, ManifestDataset, _frames_for_sample
 from .data.tokenizer import EOS, load_tokenizer
 from .decoding import (BeamResult, GreedyResult, beam_decode, best_hypotheses,
                        greedy_decode, tokens_to_lists)
+from .decoding.beam import check_ctc_search
 from .device import DeviceLike, resolve_device
 from .models import SpeechTransformer
 from .models.modules import subsampled_lengths
@@ -55,13 +56,18 @@ class Recognizer:
 
         ``mesh``: the model holds this rank's tensor-parallel shards of
         ``params`` on ``mesh.device`` and batches split over ``data``. The
-        int8 options are single-device only, as in JAX."""
+        int8 options are single-device only, as in JAX.
+
+        ``decode.ctc_weight`` > 0 (a model with ``model.ctc_head``): the
+        beam search is the hybrid CTC/attention one (``decoding/beam``);
+        it has no mesh, int8 or greedy path, and those raise."""
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.mesh = mesh
         self.device = resolve_device(device) if mesh is None else mesh.device
         dt = getattr(torch, cfg.model.dtype)
         self.int8_kv = bool(cfg.decode.int8_kv_cache)
+        self.ctc_weight = float(cfg.decode.ctc_weight)
         if mesh is not None:
             if cfg.decode.int8_weights or self.int8_kv:
                 raise ValueError("decode.int8_weights / decode.int8_kv_cache are "
@@ -78,6 +84,8 @@ class Recognizer:
             model.load_state_dict(params)
             self.model = model.to(self.device, dt)
         self.model.eval()
+        if self.ctc_weight > 0.0:
+            check_ctc_search(self.model, cfg.decode.int8_weights or self.int8_kv)
         self.last_steps = 0
 
     def decode_result(self, audio_int16, sample_lens, *, beam_size: int,
@@ -107,12 +115,15 @@ class Recognizer:
                                            max_len=max_len, alpha=alpha))
             result = fn(feats, frame_lens)
         elif beam_size == 1:
+            if self.ctc_weight > 0.0:
+                raise ValueError("greedy search (beam 1) has no CTC prefix scorer: "
+                                 "decode.ctc_weight > 0 needs beam_size > 1")
             result = greedy_decode(self.model, feats, frame_lens, max_len=max_len,
                                    int8_kv=self.int8_kv, device=self.device)
         else:
             result = beam_decode(self.model, feats, frame_lens, beam_size=beam_size,
                                  max_len=max_len, alpha=alpha, int8_kv=self.int8_kv,
-                                 device=self.device)
+                                 device=self.device, ctc_weight=self.ctc_weight)
         self.last_steps = result.steps
         return result
 

@@ -106,6 +106,9 @@ def export_recognizer(cfg, params: Dict[str, torch.Tensor], *, batch_size: int,
     from .device import resolve_device
     from .models import SpeechTransformer
 
+    if cfg.decode.ctc_weight > 0.0:
+        raise ValueError("decode.ctc_weight > 0 cannot be exported: the exported "
+                         "decode loop has no CTC prefix scorer")
     dev = resolve_device(device)
     model = SpeechTransformer(cfg.model).to(dev, getattr(torch, cfg.model.dtype)).eval()
     decode = _Decode(model, beam_size=beam_size, max_len=max_len, alpha=alpha)

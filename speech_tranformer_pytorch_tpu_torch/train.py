@@ -1,7 +1,10 @@
 """Train step (counterpart of the JAX package's ``train.py``).
 
 One step: teacher-forced forward with dropout → label-smoothed CE →
-backward → global-norm clip → Adam under the Noam schedule. Mixed
+backward → global-norm clip → Adam under the Noam schedule. With
+``train.ctc_weight`` w > 0 (a model with ``model.ctc_head``) the loss is
+the hybrid CTC/attention one, (1 − w)·CE + w·CTC, the CTC loss summed over
+the batch and taken over the CE's token count, as the CE is. Mixed
 precision is the JAX scheme: the f32 master parameters are cast to
 ``model.dtype`` once per step (``cast_params``) and the model runs on the
 cast copy through ``torch.func.functional_call``; the cast's backward
@@ -33,7 +36,7 @@ from .device import DeviceLike, resolve_device
 from .models import SpeechTransformer
 from .ops.dropout import step_generator
 from .ops.fused_adam import AdamState, FusedAdam, global_norm_f32
-from .ops.losses import label_smoothed_cross_entropy, token_accuracy
+from .ops.losses import ctc_loss_sum, label_smoothed_cross_entropy, token_accuracy
 from .ops.schedules import noam_schedule
 
 Metrics = Dict[str, torch.Tensor]
@@ -146,11 +149,26 @@ def create_train_state(cfg: ExperimentConfig, *, device: DeviceLike = None,
     return TrainState(step=0, model=model, opt=opt)
 
 
-def _loss_and_metrics(cfg, logits, batch) -> Tuple[torch.Tensor, Metrics]:
+def _forward_kw(cfg: ExperimentConfig) -> dict:
+    """The model's forward also returns the CTC log-probs when the loss
+    weighs them in."""
+    return {"ctc": True} if cfg.train.ctc_weight > 0.0 else {}
+
+
+def _loss_and_metrics(cfg, out, batch) -> Tuple[torch.Tensor, Metrics]:
+    """``out``: the forward's logits, or with ``_forward_kw``'s ``ctc``
+    (logits, CTC log-probs, encoder lengths)."""
+    logits = out[0] if isinstance(out, tuple) else out
     loss, tokens = label_smoothed_cross_entropy(
         logits, batch.targets_out, smoothing=cfg.train.label_smoothing)
-    acc = token_accuracy(logits.detach(), batch.targets_out)
-    return loss, {"tokens": tokens, "accuracy": acc}
+    metrics = {"tokens": tokens, "accuracy": token_accuracy(logits.detach(), batch.targets_out)}
+    w = cfg.train.ctc_weight
+    if w > 0.0:   # the labels are targets_out without its <eos>
+        _, log_probs, enc_lens = out
+        ctc = ctc_loss_sum(log_probs, enc_lens, batch.targets_out, batch.target_lens - 1) / tokens
+        metrics.update(att_loss=loss.detach(), ctc_loss=ctc.detach())
+        loss = (1.0 - w) * loss + w * ctc
+    return loss, metrics
 
 
 def loss_and_grads(cfg: ExperimentConfig, state: TrainState, batch: Batch,
@@ -166,11 +184,11 @@ def loss_and_grads(cfg: ExperimentConfig, state: TrainState, batch: Batch,
     compute = params if cfg.train.master_weights else cast_params(
         params, compute_cast_dtype(cfg))
     with torch.enable_grad():
-        logits = functional_call(
+        out = functional_call(
             state.model, compute,
             (batch.feats, batch.frame_lens, batch.targets_in, batch.target_lens),
-            {"deterministic": False, "generator": gen})
-        loss, metrics = _loss_and_metrics(cfg, logits, batch)
+            {"deterministic": False, "generator": gen, **_forward_kw(cfg)})
+        loss, metrics = _loss_and_metrics(cfg, out, batch)
         grads = torch.autograd.grad(loss, list(params.values()))
     metrics["loss"] = loss.detach()
     return dict(zip(params, grads)), metrics
@@ -208,10 +226,11 @@ def make_eval_step(cfg: ExperimentConfig) -> Callable[[TrainState, Batch], Metri
     @torch.no_grad()
     def step(state: TrainState, batch: Batch) -> Metrics:
         batch = batch.to(state.device)
-        logits = functional_call(
+        out = functional_call(
             state.model, cast_params(state.params, cast_dt),
-            (batch.feats, batch.frame_lens, batch.targets_in, batch.target_lens))
-        loss, metrics = _loss_and_metrics(cfg, logits, batch)
+            (batch.feats, batch.frame_lens, batch.targets_in, batch.target_lens),
+            _forward_kw(cfg))
+        loss, metrics = _loss_and_metrics(cfg, out, batch)
         metrics["loss"] = loss
         return metrics
 

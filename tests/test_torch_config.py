@@ -1,7 +1,8 @@
 """The PyTorch port's config copy, import hygiene and device rules.
 
 The port keeps its own copy of the JAX package's configuration; every
-preset must serialize identically. Importing the port must pull in neither
+preset must serialize identically once the port's own fields
+(``config.PORT_ONLY``, off in every preset) are dropped. Importing the port must pull in neither
 JAX nor the JAX package, and its entry points must refuse to run when no
 device is named and CUDA is absent (they never fall back quietly)."""
 
@@ -24,15 +25,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.mark.parametrize("preset", sorted(jcfg.PRESETS))
 def test_preset_to_dict_matches_jax(preset):
-    assert pcfg.get_config(preset).to_dict() == jcfg.get_config(preset).to_dict()
-    assert (pcfg.get_config(preset).model_hash()
-            == jcfg.get_config(preset).model_hash())
+    cfg = pcfg.get_config(preset)
+    d = cfg.to_dict()
+    for section, fields in pcfg.PORT_ONLY.items():
+        for name, default in fields.items():
+            assert d[section].pop(name) == default     # off in every preset
+    assert d == jcfg.get_config(preset).to_dict()
+    assert cfg.jax_dict() == d
+    assert cfg.model_hash() == jcfg.get_config(preset).model_hash()
 
 
 def test_overrides_and_validate_match_jax():
     over = {"model.d_model": 640, "decode.beam_size": 3,
             "features.output_dtype": "float32"}
-    assert (pcfg.get_config("base", **over).to_dict()
+    assert (pcfg.get_config("base", **over).jax_dict()
             == jcfg.get_config("base", **over).to_dict())
     bad = {"model.num_heads": 7, "features.output_dtype": "float16"}
     with pytest.raises(ValueError) as pe:
