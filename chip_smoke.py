@@ -18,7 +18,11 @@ Phases (any failure exits non-zero before the final line):
      kernel, V 5000, V 4337 and 32 utterances; indices exact, every case
      bit-identical on a second call; one device kernel a call on the main
      shape), lineage attention (beam 5, a shared history,
-     L 256 and K = 1), flash attention forward, dK/dV and dQ
+     L 256 and K = 1), decode cross-attention (``check_cross_attention``:
+     every length bucket of both serving cells, greedy K = 1, H 4 and 16
+     at D 128, an utterance with no valid frame, the int8 path's
+     frame-major cache; bit-identical on a second call, timed beside the
+     route it replaced), flash attention forward, dK/dV and dQ
      (``check_flash``: the ``base`` and ``large`` train shapes,
      zero-length rows, D 20, T' 750 and D 128, causal and not, and the
      bf16 forward and backward bit-identical on a second call), the fused
@@ -529,6 +533,130 @@ def check_lineage(torch, dev):
                               "(not the same function: no bf16 rounding of the weights)",
                shape=[b * 5, 100, 8, 64, 49],
                sharded=recs[("sharded_beam5", 49)])
+    emit({"check": rec})
+    return rec
+
+
+# Decode cross-attention (``kernels/cross_attention.py``) at the serving
+# cells' shapes: every length bucket of `base.serve.aishell-b8` (B 8) and of
+# `librispeech.serve.ls-b16` (B 16), K 5, H 8, D 64, each utterance's valid
+# frames drawn within its bucket; greedy decoding's K 1; a tensor-parallel
+# rank's H 4 and one card's H 16 at D 128; an utterance with no valid frame
+# (uniform weights over S, as the plain version's all-masked row); and the
+# int8 path's dequantised cache, which keeps the encoder's frame-major
+# strides. Tolerances: float32 within 1e-5 (the kernel sums up to 749 frames
+# in another order, and its exp is not torch's); bfloat16 2e-2, as lineage
+# attention, since a weight one ulp apart after its rounding to bf16 moves
+# the output by up to a bf16 step. Every case bit-identical on a second
+# call. Timed in bf16 at the LibriSpeech cell's longest padded length (S 749)
+# with lengths from 749 down to 24 (its step-weighted mean, ~386) and within
+# its 3000 bucket, at `base`'s 1400 bucket (S 349) and greedily there, each
+# beside the plain version and the route the step ran before the kernel
+# (float32 keys kept in the cache, the bias made once a step): ``library_ms``.
+CROSS_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-5)}
+
+
+def _cross_cases():
+    """(label, B, K, H, D, S, (lo, hi): valid lengths drawn in [lo, hi] (lo 0:
+    one utterance with no valid frame), frame-major) of every checked case."""
+    from portbench.work.model import subsampled
+
+    cases = []
+    for cell, b, buckets in (("base", 8, MIX_BUCKETS), ("librispeech", 16, CTC_BUCKETS)):
+        low = 100
+        for top in buckets:
+            s = subsampled(top)
+            cases.append((f"{cell},S={s}", b, 5, 8, 64, s, (subsampled(low) + 1, s), False))
+            low = top
+    cases += [("greedy,K=1,S=349", 8, 1, 8, 64, 349, (250, 349), False),
+              ("mesh_rank,H=4,D=128", 8, 5, 4, 128, 349, (250, 349), False),
+              ("H=16,D=128", 8, 5, 16, 128, 349, (250, 349), False),
+              ("frame_major,S=349", 8, 5, 8, 64, 349, (250, 349), True),
+              ("frame_major,K=1,S=749", 16, 1, 8, 64, 749, (500, 749), True),
+              ("empty_row,S=99", 8, 5, 8, 64, 99, (0, 99), False)]
+    return cases
+
+
+def _cross_inputs(torch, dev, dtype, g, b, k, h, d, s, lens, frame_major):
+    q = torch.randn(b * k, 1, h, d, generator=g).to(dev, dtype)
+    kv = []
+    for _ in range(2):
+        if frame_major:   # [B, S, H, D] storage seen as [B, H, S, D]
+            kv.append(torch.randn(b, s, h, d, generator=g).to(dev, dtype).transpose(1, 2))
+        else:
+            kv.append(torch.randn(b, h, s, d, generator=g).to(dev, dtype))
+    if isinstance(lens, tuple):
+        lo, hi = lens
+        lens = torch.randint(max(lo, 1), hi + 1, (b,), generator=g)
+        if lo == 0:
+            lens[b // 2] = 0
+    return q, kv[0], kv[1], torch.as_tensor(lens, dtype=torch.int32).to(dev)
+
+
+def check_cross_attention(torch, dev):
+    from portbench.work.cross import call_counts
+    from speech_tranformer_pytorch_tpu_torch.kernels import cross_attention as ca
+
+    g = torch.Generator().manual_seed(5)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = CROSS_TOL[str(dtype)[6:]]
+        for label, b, k, h, d, s, lens, frame_major in _cross_cases():
+            args = _cross_inputs(torch, dev, dtype, g, b, k, h, d, s, lens, frame_major)
+            got = ca.cross_attention_decode_cuda(*args)
+            again = ca.cross_attention_decode_cuda(*args)
+            want = ca.cross_attention_decode_reference(*args)
+            torch.cuda.synchronize()
+            name = f"cross_attention[{str(dtype)[6:]},{label}]"
+            if got.dtype != dtype or got.shape != want.shape or got.stride() != want.stride():
+                raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} {got.stride()}")
+            same = bool(torch.equal(got, again))
+            errs[(dtype, label)] = check_close(name, got, want, atol, rtol)
+            emit({"check": {"name": name, "max_abs_err": errs[(dtype, label)],
+                            "second_call_bit_equal": same,
+                            "splits": ca.splits_for(b * h, s, ca._sm_count(dev.index or 0))}})
+            if not same:
+                raise AssertionError(f"{name}: differs on a second call")
+
+    def old_route(q, k32, v, bias):
+        bk, _, h, d = q.shape
+        qb = q.reshape(k32.shape[0], -1, h, d).transpose(1, 2)
+        scores = torch.einsum("bhtd,bhsd->bhts", qb.float(), k32) / math.sqrt(d)
+        weights = torch.softmax(scores + bias, dim=-1).to(v.dtype)
+        out = torch.einsum("bhts,bhsd->bhtd", weights, v)
+        return out.transpose(1, 2).reshape(bk, 1, h * d)   # project_out's flatten
+
+    timed = (("librispeech_mean", 16, 5, 749, torch.linspace(749, 24, 16).round().int()),
+             ("librispeech_3000", 16, 5, 749, (500, 749)),
+             ("base_1400", 8, 5, 349, (250, 349)),
+             ("greedy_1400", 8, 1, 349, (250, 349)))
+    recs = {}
+    for label, b, k, s, lens in timed:
+        args = _cross_inputs(torch, dev, torch.bfloat16, g, b, k, 8, 64, s, lens, False)
+        q, kc, vc, lens_dev = args
+        k32 = kc.float()
+        valid = torch.arange(s, device=dev)[None, :] < lens_dev[:, None]
+        bias = torch.where(valid, 0.0, -1e9)[:, None, None, :]
+        nbytes, flops = call_counts(lens_dev.tolist(), k, 8, 64)
+        bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOP_PER_S)
+        rec = dict(ms=device_ms(torch, lambda: ca.cross_attention_decode_cuda(*args)),
+                   plain_ms=device_ms(torch, lambda: ca.cross_attention_decode_reference(*args)),
+                   library_ms=device_ms(torch, lambda: old_route(q, k32, vc, bias)),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   mean_valid=float(lens_dev.float().mean()))
+        recs[label] = rec
+        emit({"check": {"name": f"cross_attention_timing[{label},B={b},K={k},S={s}]", **rec}})
+    main = recs["librispeech_mean"]
+    rec = dict(name="cross_attention_decode", source=f"{PKG}/csrc/cross_attention.cu",
+               replaces="none: XLA's einsum route (speech_tranformer_pytorch_tpu/models/"
+                        "modules.py:503)",
+               max_abs_err=max(v for (dt, _), v in errs.items() if dt == torch.bfloat16),
+               max_abs_err_f32=max(v for (dt, _), v in errs.items() if dt == torch.float32),
+               ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+               bound_by=main["bound_by"], library_ms=main["library_ms"],
+               library_note="the route before the kernel: f32 score GEMM over the kept f32 "
+                            "keys, scale, bias, softmax, cast, P.V GEMM, transpose copy",
+               timed=recs)
     emit({"check": rec})
     return rec
 
@@ -1697,6 +1825,7 @@ def expected_serve_launches(cfg, steps: int, int8: bool, beam: int, ring: int = 
     want = {k: 0 for k in interface.launch_counts()}
     want.update({"stft_mel": 1, "beam_prune": steps if beam > 1 else 0,
                  "lineage_attention": m.num_decoder_layers * steps,
+                 "cross_attention_decode": m.num_decoder_layers * steps,
                  "flash_fwd": m.num_encoder_layers * ring})
     if int8:   # + the cross K and V projections of init_cache
         want["int8_matmul"] = m.num_decoder_layers * (layer_step * steps + 2)
@@ -2367,7 +2496,8 @@ def _count_dev_eval(tr, total):
         "stft_mel": 1, "flash_fwd": m.num_encoder_layers + 2 * m.num_decoder_layers})
     tr._greedy_batch = counted("greedy decode", decode_batch, lambda: {
         "stft_mel": 1, "flash_fwd": m.num_encoder_layers,
-        "lineage_attention": m.num_decoder_layers * steps[-1]})
+        "lineage_attention": m.num_decoder_layers * steps[-1],
+        "cross_attention_decode": m.num_decoder_layers * steps[-1]})
 
 
 def _trainer_run(torch, dev, cfg, work, paths, max_steps, total, resume=False,
@@ -2983,13 +3113,13 @@ def drive_recipe(torch, dev):
         report["recognize"] = scores
         # One batch of 10, decoded twice (its first call, then again for the
         # steady-state RTF): per call 1 fbank and 2 encoder flash launches;
-        # per beam step 1 prune and 2 lineage launches.
+        # per beam step 1 prune, 2 lineage and 2 cross-attention launches.
         calls = 2
+        layer_steps = RECIPE_SETS["model.num_decoder_layers"] * launches["beam_prune"]
         want = dict({k: 0 for k in launches}, stft_mel=calls,
                     flash_fwd=RECIPE_SETS["model.num_encoder_layers"] * calls,
-                    beam_prune=launches["beam_prune"],
-                    lineage_attention=RECIPE_SETS["model.num_decoder_layers"]
-                    * launches["beam_prune"])
+                    beam_prune=launches["beam_prune"], lineage_attention=layer_steps,
+                    cross_attention_decode=layer_steps)
         if launches != want or launches["beam_prune"] < calls:
             raise AssertionError(f"recognize_cli launches {launches}, expected {want}")
         _add(total, launches)
@@ -3352,8 +3482,9 @@ def parallel_path(torch, dev):
     return counts
 
 
-CHECKS = ("check_fbank", "check_beam_prune", "check_lineage", "check_flash",
-          "check_ring_blocks", "check_adam", "check_int8_matmul", "check_int8_ffn")
+CHECKS = ("check_fbank", "check_beam_prune", "check_lineage", "check_cross_attention",
+          "check_flash", "check_ring_blocks", "check_adam", "check_int8_matmul",
+          "check_int8_ffn")
 PHASES = CHECKS + ("graph_decode", "ctc_decode", "main_path", "export_path", "card_vs_cpu", "int8_path",
                    "int8_card_vs_cpu", "train_path", "large_train_path",
                    "train_card_vs_cpu", "overfit_anchor", "manifest_path", "pipeline_path",

@@ -229,7 +229,8 @@ class StepGraphs:
                                          sos_state).items():
                 if name != "cache":
                     store("carry." + name, t)
-            store("mem_lens", mem_lens)
+            # int32, as the cross-attention kernel reads it: no cast in the step
+            store("mem_lens", mem_lens.to(torch.int32))
             store("index", torch.zeros((), dtype=torch.int32, device=self.device))
             spec["go"] = ((), (), torch.bool)
             self._specs[key] = spec

@@ -74,6 +74,9 @@ SIGNATURES = {
     # logp, state, last, cand, lens, psi, out, rows, pre_beam, beams, vocab,
     # frames, n, n_dev (a device int32, or null to read n), blank, eos, stream
     "st_ctc_prefix": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
+    # q, k, v, lens, out, batch, beams, heads, frames, head_dim, strides[6]
+    # (b, h, s of K, then of V), splits, is_bf16, stream
+    "st_cross_attention_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LP, _I, _I, _P],
     # x, wq, scale, y, m, k, n, ldx, rows, k_chunk, is_bf16, stream
     "st_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P],
     # x, w1q, s1, b1, w2q, s2, b2, y, partial, counters, m, k, ff, n, ldx,

@@ -1,13 +1,14 @@
 """The serving kernels as ``torch.library`` custom ops (namespace ``st_port``).
 
 ``torch.export`` and graph compilers cannot see into a ctypes call on
-``data_ptr``s, so the three kernels of the exported serving path are
+``data_ptr``s, so the four kernels of the exported serving path are
 registered here as operators with a fake implementation that gives their
 output shapes, dtypes and strides:
 
-  st_port::beam_candidate_topk  B-2, ``kernels/beam_prune.py``
-  st_port::lineage_attention    B-3, ``kernels/lineage_attention.py``
-  st_port::flash_fwd            B-4, ``kernels/flash_attention.py``
+  st_port::beam_candidate_topk     B-2, ``kernels/beam_prune.py``
+  st_port::lineage_attention       B-3, ``kernels/lineage_attention.py``
+  st_port::flash_fwd               B-4, ``kernels/flash_attention.py``
+  st_port::cross_attention_decode  the port's own, ``kernels/cross_attention.py``
 
 Each op's CUDA implementation is the hand-written kernel's wrapper (which
 counts its launches) and its CPU implementation the plain version; the
@@ -24,7 +25,8 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from . import beam_prune, flash_attention as flash, lineage_attention as lineage
+from . import beam_prune, cross_attention as cross, flash_attention as flash
+from . import lineage_attention as lineage
 
 NAMESPACE = "st_port"
 
@@ -78,6 +80,26 @@ def _(q_new, self_k, self_v, lineage_table, index, beam_width):
 @lineage_attention.register_fake
 def _(q_new, self_k, self_v, lineage_table, index, beam_width):
     return q_new.new_empty(q_new.shape)
+
+
+# ----------------------------------------------- decode cross-attention
+
+@torch.library.custom_op(f"{NAMESPACE}::cross_attention_decode", mutates_args=(),
+                         device_types="cpu")
+def cross_attention_decode(q: Tensor, k: Tensor, v: Tensor, mem_lens: Tensor) -> Tensor:
+    """[B·K, 1, H, D] in q's dtype: the step's queries q [B·K, 1, H, D]
+    against the cross cache k/v [B, H, S, D], frames < mem_lens[b] [B]."""
+    return cross.cross_attention_decode_reference(q, k, v, mem_lens).contiguous()
+
+
+@cross_attention_decode.register_kernel("cuda")
+def _(q, k, v, mem_lens):
+    return cross.cross_attention_decode_cuda(q, k, v, mem_lens)
+
+
+@cross_attention_decode.register_fake
+def _(q, k, v, mem_lens):
+    return q.new_empty(q.shape)
 
 
 # ---------------------------------------------------------------- B-4

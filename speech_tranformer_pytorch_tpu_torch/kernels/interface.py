@@ -10,8 +10,9 @@ run eagerly (``decoding/beam.decode_loop``). A captured step's launches
 are taken back after its capture and credited at each replay
 (``credit_launches``), so the launch counts stay the kernels the port ran.
 
-The serving kernels (beam prune, lineage attention, the flash forward)
-are reached through their ``torch.library`` custom ops
+The serving kernels (beam prune, lineage attention, decode
+cross-attention, the flash forward) are reached through their
+``torch.library`` custom ops
 (``kernels/custom_ops.py``), whose CUDA and CPU implementations are that
 same pair, so that ``torch.export`` traces through them.
 """
@@ -23,7 +24,8 @@ from typing import Dict, List, Optional
 import torch
 
 from ..ops import masks
-from . import beam_prune, ctc_prefix, custom_ops, flash_attention as flash
+from . import beam_prune, cross_attention as cross, ctc_prefix, custom_ops
+from . import flash_attention as flash
 from . import fused_adam as adam
 from . import int8_ffn as ffn8, int8_matmul as mm8
 from . import lineage_attention as lineage, stft_mel
@@ -40,6 +42,7 @@ _WRAPPERS = {
     "int8_matmul": mm8.int8_matmul_cuda,
     "int8_ffn": ffn8.int8_ffn_cuda,
     "ctc_prefix": ctc_prefix.ctc_prefix_cuda,
+    "cross_attention_decode": cross.cross_attention_decode_cuda,
 }
 
 
@@ -72,6 +75,14 @@ def lineage_attention(q_new, self_k, self_v, lineage_table, index, beam_width):
         index = torch.tensor(index, dtype=torch.int32)
     return custom_ops.lineage_attention(q_new, self_k, self_v, lineage_table, index,
                                         int(beam_width))
+
+
+def cross_attention_decode(q, k, v, mem_lens):
+    """One decode step's cross-attention (kernels/cross_attention.py), the op
+    ``st_port::cross_attention_decode``: the queries [B·K, 1, H, D] of K
+    beams an utterance against its cross K/V [B, H, S, D], over the frames
+    before ``mem_lens`` [B] (int32 on the card). Returns [B·K, 1, H, D]."""
+    return custom_ops.cross_attention_decode(q, k, v, mem_lens)
 
 
 def ctc_prefix_scores(logp, state, last, cand, index, lens, *, beams: int,

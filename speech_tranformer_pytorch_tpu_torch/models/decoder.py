@@ -7,7 +7,8 @@ Two modes: the teacher-forced ``forward`` and the one-token ``decode_step``
 over a KV cache. Cache layout per layer, for a step batch of B·K rows:
   self_k/self_v   : [B·K, max_len, H, D], written at ``index`` in place
   cross_k/cross_v : [B, H, S, D] head-major, beam-invariant, built once
-                    (cross_k in f32, the dtype its scores are taken in);
+                    in the compute dtype (each step takes its scores in
+                    f32 from those values, ``MultiHeadAttention.attend_bhsd``);
                     with ``int8_kv`` both int8, with per-(B, H, 1, D)
                     scales ``cross_k_scale``/``cross_v_scale``
 and, with the tied output projection, ``cache["logits"]["table_f32"]``.
@@ -108,20 +109,20 @@ class DecoderLayer(nn.Module):
                 cache[name] = torch.clamp(torch.round(t / s), -127, 127).to(torch.int8)
                 cache[name + "_scale"] = s.to(memory.dtype)
             return cache
-        # cross_k is kept in f32: every step takes its scores in f32, and
-        # the compute-dtype values are exact there, so it is cast once here.
-        cache["cross_k"] = ck.float().contiguous()
+        cache["cross_k"] = ck.contiguous()
         cache["cross_v"] = cv.contiguous()
         return cache
 
     def decode_step(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                    index: int, cross_bias: torch.Tensor, beam_width: int,
+                    index: int, mem_lens: torch.Tensor, beam_width: int,
                     lineage: Optional[torch.Tensor]) -> torch.Tensor:
         """x [B·K, 1, d] at position ``index`` (an int, or a 0-d int32
-        tensor on the cache's device); writes this position's k/v into
-        ``cache`` in place (saves a copy of the cache per step), or, while
-        ``torch.export`` traces (a step inside a ``while_loop``, which may
-        not mutate its carry), puts new self K/V tensors in ``cache``.
+        tensor on the cache's device), cross-attending to the first
+        ``mem_lens`` [B] (int32) frames of each utterance; writes this
+        position's k/v into ``cache`` in place (saves a copy of the cache
+        per step), or, while ``torch.export`` traces (a step inside a
+        ``while_loop``, which may not mutate its carry), puts new self K/V
+        tensors in ``cache``.
         Self-attention reads the unpermuted cache through ``lineage``, or,
         with ``lineage=None`` (beam search's ``use_lineage=False``, whose
         cache is gathered by beam every step), attends over the cache
@@ -151,16 +152,13 @@ class DecoderLayer(nn.Module):
             return self.self_attn.project_out(out)
 
         def cross_attend(h):
-            # Fold the K beams into query rows: the cross cache is
-            # beam-invariant, so it is read once per utterance.
-            bk, _, d = h.shape
+            # The K beams of an utterance are its query rows: the cross
+            # cache is beam-invariant, so it is read once per utterance.
             ck, cv = cache["cross_k"], cache["cross_v"]
             if ck.dtype == torch.int8:      # per-step dequant in the compute dtype
                 ck = ck.to(h.dtype) * cache["cross_k_scale"]
                 cv = cv.to(h.dtype) * cache["cross_v_scale"]
-            out = self.cross_attn.attend_bhsd(
-                h.reshape(bk // beam_width, beam_width, d), ck, cv, cross_bias)
-            return out.reshape(bk, 1, d)
+            return self.cross_attn.attend_bhsd(h, ck, cv, mem_lens)
 
         if self.normalize_before:
             x = x + self_attend(self.ln1(x))
@@ -290,16 +288,14 @@ class Decoder(nn.Module):
         ``lineage`` [B, K, max_len] int32 names the cache lane that holds
         beam k's step-j entry; ``None`` for a cache gathered by beam
         (``DecoderLayer.decode_step``)."""
-        s = cache["layer_0"]["cross_k"].shape[2]
         x = self._embed_scaled(tokens[:, None])                # [B·K,1,d]
         pe = self.pos_enc.pe
         row = (pe.index_select(0, index.reshape(1).long())
                if isinstance(index, torch.Tensor) else pe[index:index + 1])
         x = x + row[None].to(x.dtype)
-        cross_bias = mask_ops.mask_to_bias(
-            mask_ops.padding_attention_mask(1, mem_lens, s))
+        lens = mem_lens.to(torch.int32)   # what the cross-attention kernel reads
         for i, layer in enumerate(self.layers):
-            x = layer.decode_step(x, cache[f"layer_{i}"], index, cross_bias,
-                                  beam_width, lineage)
+            x = layer.decode_step(x, cache[f"layer_{i}"], index, lens, beam_width,
+                                  lineage)
         table_f32 = cache.get("logits", {}).get("table_f32")
         return self._logits(self.final_norm(x), table_f32)[:, 0, :], cache

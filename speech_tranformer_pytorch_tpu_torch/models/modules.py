@@ -227,17 +227,16 @@ class MultiHeadAttention(nn.Module):
         return self.project_out(out)
 
     def attend_bhsd(self, q_in: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: Optional[torch.Tensor]) -> torch.Tensor:
-        """Cross-attention against a head-major [B,H,S,D] cache."""
-        q = self.project_q(q_in)                              # [B,T,H,D]
-        qb = q.transpose(1, 2)                                # [B,H,T,D]
-        scores = torch.einsum("bhtd,bhsd->bhts", qb.float(), k.float())
-        scores = scores / math.sqrt(q.shape[-1])
-        if bias is not None:
-            scores = scores + bias.float()
-        weights = torch.softmax(scores, dim=-1).to(v.dtype)
-        out = torch.einsum("bhts,bhsd->bhtd", weights, v)
-        return self.project_out(out.transpose(1, 2))
+                    mem_lens: torch.Tensor) -> torch.Tensor:
+        """A decode step's cross-attention: the rows of ``q_in`` [B·K, 1, d]
+        (K beams an utterance) against a head-major [B,H,S,D] cache in the
+        compute dtype, over the frames before ``mem_lens`` [B], then the
+        out projection. Between the two projections is
+        ``interface.cross_attention_decode``: one kernel launch on the card,
+        the plain einsum route on the CPU (float32 scores of the
+        compute-dtype values, weights rounded to that dtype before P·V)."""
+        q = self.project_q(q_in)                              # [B·K,1,H,D]
+        return self.project_out(interface.cross_attention_decode(q, k, v, mem_lens))
 
     def forward(self, q_in, kv_in, *, kv_lengths: torch.Tensor, causal: bool = False,
                 deterministic: bool = True, q_lengths: Optional[torch.Tensor] = None,

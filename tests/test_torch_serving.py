@@ -2,8 +2,8 @@
 JAX package, at the tiny shapes of ``tests/test_serving.py``: a port
 artifact, taken through bytes and ``load_exported``, decodes as JAX's live
 ``beam_decode`` / greedy decode does on the same converted weights (tokens
-and lengths exact, scores within 1e-4; float32, CPU); the exported program
-calls the three kernel operators; the CLI round-trips a trained run
+and lengths exact, scores within 1e-4; float32, CPU); the exported programs
+call the kernel operators (beam: all four; greedy: the two attention ones); the CLI round-trips a trained run
 through its ``.npz``; and a process that only loads an artifact imports
 none of the model code."""
 
@@ -93,7 +93,7 @@ def test_export_beam_roundtrip_matches_jax(setup, beam_artifact):
     # The encoder traced to the flash forward op, the loop to the other two.
     ops = _op_targets(beam_artifact)
     for op in ("st_port.flash_fwd", "st_port.lineage_attention",
-               "st_port.beam_candidate_topk"):
+               "st_port.beam_candidate_topk", "st_port.cross_attention_decode"):
         assert any(t.startswith(op) for t in ops), (op, sorted(ops))
 
 
@@ -108,6 +108,9 @@ def test_export_greedy_roundtrip_matches_jax(setup):
     np.testing.assert_array_equal(tokens[:, 0].numpy(), np.asarray(want_t))
     np.testing.assert_array_equal(lengths[:, 0].numpy(), np.asarray(want_l))
     assert not scores.any()
+    ops = _op_targets(data)
+    for op in ("st_port.lineage_attention", "st_port.cross_attention_decode"):
+        assert any(t.startswith(op) for t in ops), (op, sorted(ops))
     ops = _op_targets(data)
     assert not any(t.startswith("st_port.beam_candidate_topk") for t in ops)
 
