@@ -430,11 +430,11 @@ def check_beam_prune(torch, dev):
 # Tolerances as the JAX goldens (tests/test_lineage_attention_kernel.py):
 # f32 2e-6 (summation order only), bf16 2e-2 (the weights are rounded to
 # bf16 before the AV product). Every case must be bit-identical on a
-# second call, and with the index given as a device int32 (the route of
-# an exported decode loop, whose kernel reads the index itself). The `sharded` preset's decode in parallel_path runs the
-# kernel at D 128 (16 lanes a row, not 8) with 16 heads on one card and 4
-# a rank under TP 4: both are checked on its 40 rows x L 100 at index 0,
-# 49 and 99 and at K = 1. Timed in bf16 at index 0, 49 and 99 of the
+# second call; the index is a device int32, which the kernel reads itself
+# (every decode step's route). The `sharded` preset's decode in
+# parallel_path runs the kernel at D 128 (16 lanes a row, not 8) with 16
+# heads on one card and 4 a rank under TP 4: both are checked on its 40
+# rows x L 100 at index 0, 49 and 99 and at K = 1. Timed in bf16 at index 0, 49 and 99 of the
 # beam-5 cache, at K = 1 on 8 rows and at the sharded shape on one card;
 # the kernels line reports the base cache at index 49.
 LINEAGE_TIMED = (("beam5", 5, 100, 0, 8, 64), ("beam5", 5, 100, 49, 8, 64),
@@ -471,28 +471,22 @@ def check_lineage(torch, dev):
         for label, kw in cases:
             k = kw.get("k", 5)
             args = inputs(dtype=dtype, **kw)
-            got = la.lineage_attention_cuda(*args, kw["index"], k)
-            again = la.lineage_attention_cuda(*args, kw["index"], k)
-            # The index as a device int32, read by the kernel (an exported
-            # decode loop's step).
-            on_dev = la.lineage_attention_cuda(
-                *args, torch.tensor(kw["index"], dtype=torch.int32, device=dev), k)
-            want = la.lineage_attention_reference(*args, kw["index"], k)
+            index = torch.tensor(kw["index"], dtype=torch.int32, device=dev)
+            got = la.lineage_attention_cuda(*args, index, k)
+            again = la.lineage_attention_cuda(*args, index, k)
+            want = la.lineage_attention_reference(*args, index, k)
             torch.cuda.synchronize()
             name = f"lineage_attention[{str(dtype)[6:]},{label}]"
             if got.dtype != dtype or got.shape != want.shape:
                 raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}")
             same = bool(torch.equal(got, again))
-            same_dev = bool(torch.equal(got, on_dev))
             errs[(dtype, label)] = check_close(name, got, want, atol, 1e-5)
             emit({"check": {"name": name, "max_abs_err": errs[(dtype, label)],
-                            "second_call_bit_equal": same,
-                            "device_index_bit_equal": same_dev}})
-            if not (same and same_dev):
+                            "second_call_bit_equal": same}})
+            if not same:
                 failed.append(name)
     if failed:
-        raise AssertionError(f"lineage_attention differs on a second call or with "
-                             f"a device index: {failed}")
+        raise AssertionError(f"lineage_attention differs on a second call: {failed}")
     recs = {}
     for label, k, L, index, h, d in LINEAGE_TIMED:
         args = inputs(index, torch.bfloat16, k=k, L=L, h=h, d=d)
@@ -514,9 +508,10 @@ def check_lineage(torch, dev):
                   + rows * (index + 1) * 4)         # lineage columns read
         flops = rows * h * (index + 1) * (4 * d + 5)
         bound_ms, bound_by = bound(nbytes, flops)
-        rec = dict(ms=device_ms(torch, lambda: la.lineage_attention_cuda(*args, index, k)),
+        step = torch.tensor(index, dtype=torch.int32, device=dev)
+        rec = dict(ms=device_ms(torch, lambda: la.lineage_attention_cuda(*args, step, k)),
                    plain_ms=device_ms(torch, lambda: la.lineage_attention_reference(
-                       *args, index, k)),
+                       *args, step, k)),
                    yardstick_ms=device_ms(torch, gathered_sdpa),
                    bound_ms=bound_ms, bound_by=bound_by)
         recs[(label, index)] = rec
@@ -2068,10 +2063,10 @@ def graph_decode(torch, dev):
 # frames (lengths 749 down to 374), beam 5, pre-beam 7, V 5000, log-probs
 # padded past each utterance's frames as ESPnet pads them. Four steps from
 # the <sos> state (n 0 to 3), each with an <eos> and (from n 1) a repeated
-# candidate, with n given by value and as a device int32 (a captured
-# step's). psi and the states within 1e-3 plus 1e-5 of each value of the
-# plain version (float32 summed in another order: the kernel scans the
-# frames in 32 chunks), bit-identical on a second call. Timed at n 3.
+# candidate, with n a device int32 (every decode step's index). psi and
+# the states within 1e-3 plus 1e-5 of each value of the plain version
+# (float32 summed in another order: the kernel scans the frames in 32
+# chunks), bit-identical on a second call. Timed at n 3.
 CTC_SHAPE = (16, 5, 749, 5000)          # batch, beam, encoder frames, vocabulary
 CTC_TOL = (1e-3, 1e-5)                  # atol, rtol
 CTC_BUCKETS = (200, 400, 600, 800, 1000, 1400, 2000, 3000)   # portbench/mixes/serve.ls-b16.json
@@ -2100,29 +2095,29 @@ def check_ctc_prefix(torch, dev):
         cand[:, 0] = 2                                                      # <eos>
         if n:
             cand[:, 1] = last                                               # a repeat
-        want = ctc_prefix.ctc_prefix_reference(logp, state, last, cand, n, lens, beams=k)
-        for how, index in (("host", n), ("device", torch.tensor(n, dtype=torch.int32,
-                                                                 device=dev))):
-            got = ctc_prefix.ctc_prefix_cuda(logp, state, last, cand, index, lens, beams=k)
-            again = ctc_prefix.ctc_prefix_cuda(logp, state, last, cand, index, lens, beams=k)
-            torch.cuda.synchronize()
-            name = f"ctc_prefix[n={n},{how}]"
-            err = (check_close(name + ".psi", got[0], want[0], *CTC_TOL),
-                   check_close(name + ".states", got[1], want[1], *CTC_TOL))
-            same = all(torch.equal(x, y) for x, y in zip(got, again))
-            emit({"check": {"name": name, "max_abs_err": list(err), "second_call_bit_equal": same}})
-            if not same:
-                raise AssertionError(f"{name}: differs on a second call")
-            errs += list(err)
-        timed = (state, last, cand, n)
+        index = torch.tensor(n, dtype=torch.int32, device=dev)
+        want = ctc_prefix.ctc_prefix_reference(logp, state, last, cand, index, lens, beams=k)
+        got = ctc_prefix.ctc_prefix_cuda(logp, state, last, cand, index, lens, beams=k)
+        again = ctc_prefix.ctc_prefix_cuda(logp, state, last, cand, index, lens, beams=k)
+        torch.cuda.synchronize()
+        name = f"ctc_prefix[n={n}]"
+        err = (check_close(name + ".psi", got[0], want[0], *CTC_TOL),
+               check_close(name + ".states", got[1], want[1], *CTC_TOL))
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        emit({"check": {"name": name, "max_abs_err": list(err), "second_call_bit_equal": same}})
+        if not same:
+            raise AssertionError(f"{name}: differs on a second call")
+        errs += list(err)
+        timed = (state, last, cand, n, index)
         state, last = want[1][:, 2].contiguous(), cand[:, 2].contiguous()
-    state, last, cand, n = timed
-    ms = device_ms(torch, lambda: ctc_prefix.ctc_prefix_cuda(logp, state, last, cand, n, lens,
-                                                             beams=k))
+    state, last, cand, n, index = timed
+    ms = device_ms(torch, lambda: ctc_prefix.ctc_prefix_cuda(logp, state, last, cand, index,
+                                                             lens, beams=k))
     plain_ms = device_ms(torch, lambda: ctc_prefix.ctc_prefix_reference(
-        logp, state, last, cand, n, lens, beams=k), reps=2, rounds=3)
+        logp, state, last, cand, index, lens, beams=k), reps=2, rounds=3)
     kernels_per_call = device_kernels_per_call(
-        torch, lambda: ctc_prefix.ctc_prefix_cuda(logp, state, last, cand, n, lens, beams=k))
+        torch, lambda: ctc_prefix.ctc_prefix_cuda(logp, state, last, cand, index, lens,
+                                                  beams=k))
     bound_ms, bound_by = bound(*step_counts(lens.tolist(), k, n))
     rec = dict(name="ctc_prefix", source=f"{PKG}/csrc/ctc_prefix.cu",
                replaces="none: the port's own (the JAX package has no CTC head)",
@@ -2261,7 +2256,8 @@ def card_vs_cpu(torch, dev, params, audio, lens, int8: bool = False):
                 lineage = torch.arange(beam, dtype=torch.int32, device=where)[
                     None, :, None].expand(2, beam, max_len).contiguous()
                 sos = torch.full((2 * beam,), 1, dtype=torch.int32, device=where)
-                logits, _ = rec.model.decode_step(sos, 0, cache, mem_lens, beam, lineage)
+                step0 = torch.zeros((), dtype=torch.int32, device=where)
+                logits, _ = rec.model.decode_step(sos, step0, cache, mem_lens, beam, lineage)
             scores = getattr(result, "scores", None)
             out.append((hyps, None if scores is None else scores.cpu(), logits.cpu()))
         (hyp_g, sc_g, lg_g), (hyp_c, sc_c, lg_c) = out

@@ -68,14 +68,14 @@ ctc_prefix_kernel(const float* __restrict__ logp, const float* __restrict__ stat
                   const int* __restrict__ last, const int* __restrict__ cand,
                   const int* __restrict__ lens, float* __restrict__ psi,
                   float* __restrict__ out, int R, int P, int beams, int V, int T,
-                  int n_host, const int* __restrict__ n_dev, int blank, int eos) {
+                  const int* __restrict__ n_dev, int blank, int eos) {
   const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (w >= R * P) return;   // whole warps only
   const int row = w / P;
   const int b = row / beams;
   const int c = cand[w];
-  const int n = n_dev ? *n_dev : n_host;
+  const int n = *n_dev;
   const int tb = min(lens[b], T);
   const int s = max(n, 1);
   const float* xc = logp + (static_cast<size_t>(b) * V + c) * T;
@@ -146,17 +146,16 @@ ctc_prefix_kernel(const float* __restrict__ logp, const float* __restrict__ stat
 }  // namespace
 
 // logp [B, V, T], state [R, 2, T] (R = B * beams), last [R], cand [R, P],
-// lens [B] -> psi [R, P], out [R, P, 2, T]. n_dev, when not null, holds n
-// in device memory and n_host is not read.
+// lens [B] -> psi [R, P], out [R, P, 2, T]. n_dev holds n, every
+// hypothesis's length (the decode step's index), in device memory.
 extern "C" int st_ctc_prefix(const float* logp, const float* state, const int* last,
                              const int* cand, const int* lens, float* psi, float* out,
-                             int R, int P, int beams, int V, int T, int n_host,
-                             const int* n_dev, int blank, int eos, cudaStream_t stream) {
-  if (R < 1 || P < 1 || beams < 1 || T < 1 || (!n_dev && n_host < 0))
-    return cudaErrorInvalidValue;
+                             int R, int P, int beams, int V, int T, const int* n_dev,
+                             int blank, int eos, cudaStream_t stream) {
+  if (R < 1 || P < 1 || beams < 1 || T < 1 || !n_dev) return cudaErrorInvalidValue;
   const int blocks = (R * P + kWarps - 1) / kWarps;
   ctc_prefix_kernel<<<blocks, kWarps * 32, 0, stream>>>(logp, state, last, cand, lens, psi,
-                                                         out, R, P, beams, V, T, n_host,
-                                                         n_dev, blank, eos);
+                                                         out, R, P, beams, V, T, n_dev,
+                                                         blank, eos);
   return cudaGetLastError();
 }

@@ -8,12 +8,11 @@
 //   w      = softmax(s) in float32, then rounded to the cache dtype
 //   out    = sum_j w[j] * Vc[b*K + lineage[b,k,j], j, h]   (f32 accumulation)
 // Positions after `index` are never read (the reference masks them to
-// -1e9, which contributes exactly 0 to the softmax). `index` comes by value
-// or, from a decode loop traced with a tensor step index (an exported
-// program), as a pointer to one int32 in device memory, which every thread
-// reads (clamped to [0, L)); the dynamic shared memory then covers all L
-// positions. Out-of-range lanes in the table are clamped to [0, K), so a
-// bad table never reads outside the utterance's cache rows.
+// -1e9, which contributes exactly 0 to the softmax). `index` is a pointer to
+// the decode step's int32 in device memory, which every thread reads
+// (clamped to [0, L)), so the dynamic shared memory covers all L positions.
+// Out-of-range lanes in the table are clamped to [0, K), so a bad table
+// never reads outside the utterance's cache rows.
 //
 // Design. One block of 4 warps per (beam row, head) reads the cache in its
 // native [B*K, L, H, D] layout, with no gather and no relayout. A cache
@@ -71,13 +70,12 @@ __global__ void __launch_bounds__(kThreads)
 lineage_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                          const T* __restrict__ vc, const int* __restrict__ lineage,
                          T* __restrict__ out, int K, int L, int H, int D,
-                         int index_arg, const int* __restrict__ index_dev,
-                         int lpr_log2, float sqrt_d) {
+                         const int* __restrict__ index_dev, int lpr_log2, float sqrt_d) {
   constexpr int kBytes = kVec * kCpl * static_cast<int>(sizeof(T));
   constexpr int kR = kBytes <= 16 ? 4 : 2;   // positions a group keeps in flight
   using C = Chunk<T, kVec>;
-  extern __shared__ float w[];               // [index + 1] scores, then weights
-  const int index = index_dev ? min(max(*index_dev, 0), L - 1) : index_arg;
+  extern __shared__ float w[];               // [L]: scores, then weights (j <= index)
+  const int index = min(max(*index_dev, 0), L - 1);
   __shared__ float red[32];
   __shared__ float part[kWarps][kMaxD];
   const int row = blockIdx.x;                // b*K + k
@@ -222,7 +220,7 @@ lineage_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
 template <typename T, int kVec, int kCpl>
 cudaError_t launch_vec(const void* q, const void* k, const void* v, const int* lineage,
-                       void* out, int batch, int beams, int L, int H, int D, int index,
+                       void* out, int batch, int beams, int L, int H, int D,
                        const int* index_dev, cudaStream_t stream) {
   // Lanes a row: the chunks of a row over kCpl, rounded up to a power of 2.
   const int chunks = (D + kVec - 1) / kVec;
@@ -230,7 +228,7 @@ cudaError_t launch_vec(const void* q, const void* k, const void* v, const int* l
   int lpr_log2 = 0;
   while ((1 << lpr_log2) < per_lane) ++lpr_log2;
   if (lpr_log2 > 5) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (index_dev ? L : index + 1);
+  const size_t smem = sizeof(float) * L;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         lineage_attention_kernel<T, kVec, kCpl>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -240,7 +238,7 @@ cudaError_t launch_vec(const void* q, const void* k, const void* v, const int* l
   const dim3 grid(batch * beams, H);
   lineage_attention_kernel<T, kVec, kCpl><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lineage,
-      static_cast<T*>(out), beams, L, H, D, index, index_dev, lpr_log2,
+      static_cast<T*>(out), beams, L, H, D, index_dev, lpr_log2,
       static_cast<float>(sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
@@ -249,16 +247,16 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lineage,
-                   void* out, int batch, int beams, int L, int H, int D, int index,
+                   void* out, int batch, int beams, int L, int H, int D,
                    const int* index_dev, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const bool vec = D % kVec == 0 && aligned16(q) && aligned16(k) && aligned16(v);
   if (!vec)   // one element a load, up to 8 a lane: D <= 256
-    return launch_vec<T, 1, 8>(q, k, v, lineage, out, batch, beams, L, H, D, index,
-                               index_dev, stream);
+    return launch_vec<T, 1, 8>(q, k, v, lineage, out, batch, beams, L, H, D, index_dev,
+                               stream);
   // bf16: D <= 256 is at most 32 chunks, one a lane; f32 up to two a lane.
   constexpr int kCpl = sizeof(T) == 2 ? 1 : 2;
-  return launch_vec<T, kVec, kCpl>(q, k, v, lineage, out, batch, beams, L, H, D, index,
+  return launch_vec<T, kVec, kCpl>(q, k, v, lineage, out, batch, beams, L, H, D,
                                    index_dev, stream);
 }
 
@@ -267,16 +265,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* linea
 extern "C" int st_lineage_attention(const void* q, const void* k, const void* v,
                                     const int* lineage, void* out, int batch,
                                     int beams, int max_len, int heads,
-                                    int head_dim, int index, const int* index_dev,
-                                    int is_bf16, cudaStream_t stream) {
-  // index_dev, when not null, holds the index in device memory and
-  // `index` is not read.
-  if (head_dim < 1 || head_dim > kMaxD || max_len < 1 ||
-      (!index_dev && (index < 0 || index >= max_len)))
+                                    int head_dim, const int* index, int is_bf16,
+                                    cudaStream_t stream) {
+  // `index` holds the decode step's index in device memory.
+  if (head_dim < 1 || head_dim > kMaxD || max_len < 1 || !index)
     return cudaErrorInvalidValue;
   return is_bf16 ? launch<__nv_bfloat16>(q, k, v, lineage, out, batch, beams,
-                                         max_len, heads, head_dim, index, index_dev,
-                                         stream)
+                                         max_len, heads, head_dim, index, stream)
                  : launch<float>(q, k, v, lineage, out, batch, beams, max_len,
-                                 heads, head_dim, index, index_dev, stream);
+                                 heads, head_dim, index, stream);
 }

@@ -89,7 +89,7 @@ def split_cache(cache):
     first is read by every step, the second is the decode loop's carry."""
     const = {n: {key: t for key, t in c.items() if key not in _SELF}
              for n, c in cache.items()}
-    own = {n: {key: c[key] for key in _SELF} for n, c in cache.items() if "self_k" in c}
+    own = {n: {key: c[key] for key in _SELF} for n, c in cache.items()}
     return const, own
 
 
@@ -104,21 +104,26 @@ def decode_step(model: SpeechTransformer, tokens, index, const, own, mem_lens,
         return logits, {n: {key: cache[n][key] for key in _SELF} for n in own}
 
 
-def decode_loop(step, carry, max_len: int, *, device, stop=None):
-    """Run ``carry = step(carry, i)`` for i = 0 .. max_len - 1; returns
-    (carry, steps run).
+def decode_loop(step, carry, indices, *, stop=None, kind: str = "eager_steps"):
+    """Run ``carry = step(carry, indices[n])`` for n = 0 .. len(indices) - 1;
+    returns (carry, steps run). ``indices[n]`` is step n's index, a 0-d
+    int32 tensor on the step's device: a view of one ``torch.arange`` made
+    once a call (no launch a step), or a graph arena's own index, which its
+    step advances (``decoding/beam_graph.py``).
 
-    Eagerly this is a Python loop with ``i`` an int; ``stop(carry)``, when
-    given, is asked before each step and ends the loop early (one host sync
-    a step). While ``torch.export`` traces, it is one ``while_loop`` whose
-    step is traced once with ``i`` a 0-d int32 on ``device``, and whose
-    test reads a step counter kept on the host, so the exported loop runs
-    its ``max_len`` steps with no device sync; ``stop`` must be None.
+    Eagerly this is a Python loop; ``stop(carry)``, when given, is asked
+    before each step and ends the loop early (one host sync a step). While
+    ``torch.export`` traces, it is one ``while_loop`` whose step is traced
+    once with its index carried as a 0-d int32 on the indices' device, and
+    whose test reads a step counter kept on the host, so the exported loop
+    runs all its steps with no device sync; ``stop`` must be None.
 
     Under a profiler each eager step is an ``st.decode.step`` span, which
     holds the step and the stop test after it (``st.decode.stop``); the
     test before the first step is in no step span. The steps run count as
-    ``eager_steps`` (``kernels/interface.decode_step_counts``)."""
+    ``kind`` (``kernels/interface.decode_step_counts``): "eager_steps", or
+    "replays" where each step replays a CUDA graph."""
+    max_len = len(indices)
     if torch.compiler.is_exporting():
         if stop is not None:
             raise ValueError("an exported decode loop runs a fixed number of steps: "
@@ -135,7 +140,7 @@ def decode_loop(step, carry, max_len: int, *, device, stop=None):
         _, _, *leaves = while_loop(
             lambda n, i, *_: n < max_len, body,
             (torch.zeros((), dtype=torch.int64),                      # host counter
-             torch.zeros((), dtype=torch.int32, device=device), *leaves))
+             torch.zeros((), dtype=torch.int32, device=indices.device), *leaves))
         return pytree.tree_unflatten(leaves, spec), max_len
 
     def stopped(c) -> bool:
@@ -148,10 +153,10 @@ def decode_loop(step, carry, max_len: int, *, device, stop=None):
     done = max_len <= 0 or stopped(carry)
     while not done:
         with named_scope("st.decode.step"):
-            carry = step(carry, steps)
+            carry = step(carry, indices[steps])
             steps += 1
             done = steps == max_len or stopped(carry)
-    interface.count_decode_steps("eager_steps", steps)
+    interface.count_decode_steps(kind, steps)
     return carry, steps
 
 
@@ -214,9 +219,9 @@ def initial_carry(b: int, k: int, max_len: int, device, own, use_lineage: bool,
 def beam_step(model: SpeechTransformer, const, mem_lens: torch.Tensor, *, b: int, k: int,
               max_len: int, alpha: float, use_lineage: bool, device,
               ctc: Optional[CTCPrefix] = None):
-    """Beam search's step: ``step(carry, i)`` runs step ``i`` (an int, or a
-    0-d int32 tensor on ``device``) from ``carry`` (``initial_carry``'s
-    keys) and returns the next carry: the decoder step over the cache held
+    """Beam search's step: ``step(carry, i)`` runs step ``i`` (a 0-d int32
+    tensor on ``device``) from ``carry`` (``initial_carry``'s keys) and
+    returns the next carry: the decoder step over the cache held
     as ``split_cache`` parts (``const``, and the carry's own self K/V, which
     the step writes in place), then the prune and the beam bookkeeping;
     with ``ctc``, the pre-beam, CTC prefix scoring and the bookkeeping over
@@ -406,7 +411,7 @@ def eager_beam_search(
     ctc_weight: float = 0.0,
 ) -> BeamResult:
     """Beam search issuing every step's kernels from Python
-    (``decode_loop``), with the step index a Python int."""
+    (``decode_loop``)."""
     b, k = memory.shape[0], beam_size
     dev = memory.device
     with named_scope("st.decode.init_cache"):
@@ -425,7 +430,8 @@ def eager_beam_search(
         def done(c) -> bool:
             return not bool(keep_going(c, max_lp))
 
-    c, steps = decode_loop(step, carry, max_len, device=dev, stop=done)
+    c, steps = decode_loop(step, carry, torch.arange(max_len, dtype=torch.int32, device=dev),
+                           stop=done)
     with named_scope("st.decode.finalize"):
         return finalize(c, steps, alpha)
 

@@ -14,8 +14,7 @@ search by one step, and every kernel in it is the one the eager step
 launches.
 
 ``StepGraphs`` holds a model's static arena: flat buffers, one for each
-tensor of the search's state and caches (the tied output table aside,
-which the step casts to float32 itself), each sized for the largest step
+tensor of the search's state and caches, each sized for the largest step
 shape seen so far. A step shape (batch, beam, max_len, encoder frames,
 dtype, int8 cross cache, alpha) takes views of them, so one arena serves
 every shape, and every capture shares one graph memory pool. A hybrid
@@ -30,6 +29,8 @@ starts from, nothing left of an earlier call), then
 - afterwards replays its graph once a step and, with ``early_stop``,
   reads the flag after each replay (one host sync a step, as the eager
   loop has): the steps run are the eager loop's.
+
+Both run in ``beam.decode_loop``, which hands each step the arena's index.
 
 A shape larger than the arena grows it, and parameters whose storage
 moved invalidate the captures: either drops every graph, and every shape
@@ -68,11 +69,17 @@ class _Step:
     """One step shape on the arena: its views, the step that advances
     them in place, and its graph once captured."""
     carry: dict                  # the search's state (views), self K/V included
+    index: torch.Tensor          # 0-d int32: the next step's index, advanced by it
     go: torch.Tensor             # 0-d bool: the early-stop test after the last step
     max_lp: torch.Tensor         # what the test divides by (``beam.stop_bound``)
     advance: Callable[[], None]  # one step in place: what is captured
     graph: Optional[torch.cuda.CUDAGraph] = None
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def replay(self) -> None:
+        """One step as a replay of the captured graph, its launches credited."""
+        self.graph.replay()
+        interface.credit_launches(self.launches)
 
 
 class StepGraphs:
@@ -140,7 +147,7 @@ class StepGraphs:
             go.copy_(keep_going(carry, max_lp))
             index.add_(1)
 
-        return _Step(carry=carry, go=go, max_lp=max_lp, advance=advance)
+        return _Step(carry=carry, index=index, go=go, max_lp=max_lp, advance=advance)
 
     def _capture(self, entry: _Step) -> None:
         """Capture one step of ``entry`` on a side stream into the shared
@@ -172,26 +179,6 @@ class StepGraphs:
         interface.count_decode_steps("captures")
         entry.graph, entry.launches = graph, launched
 
-    def _replay(self, entry: _Step, max_len: int, early_stop: bool) -> int:
-        """Replay ``entry``'s graph once a step until the flag or
-        ``max_len`` stops it; returns the steps run."""
-        def stopped() -> bool:
-            if not early_stop:
-                return False
-            with named_scope("st.decode.stop"):
-                return not bool(entry.go)
-
-        steps = 0
-        done = stopped()
-        while not done:
-            with named_scope("st.decode.step"):
-                entry.graph.replay()
-                interface.credit_launches(entry.launches)
-                interface.count_decode_steps("replays")
-                steps += 1
-                done = steps == max_len or stopped()
-        return steps
-
     def search(self, model: SpeechTransformer, memory: torch.Tensor,
                mem_lens: torch.Tensor, *, beam_size: int, max_len: int, alpha: float,
                int8_kv: bool, early_stop: bool, ctc_weight: float = 0.0) -> BeamResult:
@@ -206,11 +193,6 @@ class StepGraphs:
         spec: Spec = {}
 
         def store(name: str, t: torch.Tensor) -> torch.Tensor:
-            if name == "cache.logits.table_f32":
-                # Not kept: the captured step casts the tied table itself
-                # (~4 µs of device time), and 8.9 MB (``base``) less stays
-                # allocated between calls, beside the next call's encoder.
-                return t
             spec[name] = (tuple(t.shape), t.stride(), t.dtype)
             view = self._take(name, *spec[name])
             view.copy_(t)
@@ -239,15 +221,16 @@ class StepGraphs:
                 entry = self._steps[key] = self._build(model, key, spec)
             if early_stop:   # the test before the first step
                 entry.go.copy_(keep_going(entry.carry, entry.max_lp))
-        if entry.graph is None:   # this shape's first call on this arena
-            def run(c, i):
-                entry.advance()
-                return c
+        # A shape's first call on this arena runs its step eagerly.
+        run, kind = ((entry.advance, "eager_steps") if entry.graph is None
+                     else (entry.replay, "replays"))
 
-            _, steps = decode_loop(run, entry.carry, max_len, device=self.device,
-                                   stop=(lambda c: not bool(entry.go)) if early_stop else None)
-        else:
-            steps = self._replay(entry, max_len, early_stop)
+        def step(c, i):   # i is the arena's index, which the step advances
+            run()
+            return c
+
+        _, steps = decode_loop(step, entry.carry, [entry.index] * max_len, kind=kind,
+                               stop=(lambda c: not bool(entry.go)) if early_stop else None)
         with named_scope("st.decode.finalize"):
             result = finalize(entry.carry, steps, alpha)
         if self.device.type == "cuda":

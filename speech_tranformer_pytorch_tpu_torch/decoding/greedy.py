@@ -57,7 +57,7 @@ def greedy_search(model: SpeechTransformer, memory: torch.Tensor,
              torch.zeros((b,), dtype=torch.bool, device=dev),
              torch.full((b, max_len), PAD, dtype=torch.int32, device=dev), own)
     (_, _, tokens, _), steps = decode_loop(
-        step, carry, max_len, device=dev,
+        step, carry, torch.arange(max_len, dtype=torch.int32, device=dev),
         stop=(lambda c: bool(c[1].all())) if early_stop else None)
     with named_scope("st.decode.finalize"):
         lengths = ((tokens != EOS) & (tokens != PAD)).sum(dim=-1, dtype=torch.int32)

@@ -54,8 +54,8 @@ SIGNATURES = {
     # pad_id, sos_id, stream
     "st_beam_prune_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, lineage, out, batch, beams, max_len, heads, head_dim,
-    # index, index_dev (a device int32, or null to read index), is_bf16, stream
-    "st_lineage_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # index (a device int32), is_bf16, stream
+    "st_lineage_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
     # q, k, v, o, lse, kv_len, strides[24], batch, heads, tq, tk, head_dim,
     # causal, is_bf16, vec, stream
     "st_flash_fwd": [_P, _P, _P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -72,8 +72,8 @@ SIGNATURES = {
     "st_fused_adam": [_P, _I, _L, _P, _F, _F, _F, _F, _F, _F, _I, _P],
     "st_fused_adam_master": [_P, _I, _L, _P, _F, _F, _F, _F, _F, _F, _I, _P],
     # logp, state, last, cand, lens, psi, out, rows, pre_beam, beams, vocab,
-    # frames, n, n_dev (a device int32, or null to read n), blank, eos, stream
-    "st_ctc_prefix": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
+    # frames, n (a device int32), blank, eos, stream
+    "st_ctc_prefix": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P],
     # q, k, v, lens, out, batch, beams, heads, frames, head_dim, strides[6]
     # (b, h, s of K, then of V), splits, is_bf16, stream
     "st_cross_attention_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LP, _I, _I, _P],
@@ -176,6 +176,16 @@ def check(err: int, name: str) -> None:
     if err != 0:
         text = library().st_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} at launch: {text}")
+
+
+def index_ptr(index, device) -> int:
+    """The address of a decode step's index, which a step kernel reads on
+    the card: the index must be a 0-d int32 tensor on ``device``."""
+    if not (torch.is_tensor(index) and index.dim() == 0 and index.dtype == torch.int32
+            and index.device == device):
+        raise ValueError(f"a step index must be a 0-d int32 tensor on {device}, "
+                         f"got {index!r}")
+    return index.data_ptr()
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

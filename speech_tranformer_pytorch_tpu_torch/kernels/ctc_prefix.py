@@ -39,7 +39,7 @@ def ctc_prefix_reference(
     state: torch.Tensor,      # [R, 2, T] f32 (rⁿ, rᵇ) of each hypothesis, R = B·beams
     last: torch.Tensor,       # [R] int32 each hypothesis's last token
     cand: torch.Tensor,       # [R, P] int32 candidate tokens
-    index,                    # n, every hypothesis's length (int or 0-d tensor)
+    index: torch.Tensor,      # n, every hypothesis's length: a 0-d int32 tensor
     lens: torch.Tensor,       # [B] int32 valid frames
     *,
     beams: int,
@@ -82,7 +82,7 @@ def ctc_prefix_reference(
 def ctc_prefix_cuda(logp, state, last, cand, index, lens, *, beams: int, blank: int = 0,
                     eos: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper: same contract as ``ctc_prefix_reference`` for CUDA
-    tensors; ``index`` may be a 0-d int32 on the card (a captured step's),
+    tensors, with ``index`` a 0-d int32 tensor on the log-probs' device,
     which the kernel reads there."""
     if logp.device.type != "cuda":
         raise ValueError("ctc_prefix_cuda needs CUDA tensors")
@@ -102,14 +102,10 @@ def ctc_prefix_cuda(logp, state, last, cand, index, lens, *, beams: int, blank: 
     lens = lens.to(torch.int32).contiguous()
     psi = torch.empty((r, p), dtype=torch.float32, device=dev)
     out = torch.empty((r, p, 2, t_all), dtype=torch.float32, device=dev)
-    on_card = isinstance(index, torch.Tensor) and index.device.type == "cuda"
-    if on_card:
-        index = index.to(torch.int32)
-    n_host, n_dev = (0, index.data_ptr()) if on_card else (int(index), None)
     _build.check(_build.library().st_ctc_prefix(
         logp.data_ptr(), state.data_ptr(), last.data_ptr(), cand.data_ptr(),
-        lens.data_ptr(), psi.data_ptr(), out.data_ptr(), r, p, beams, v, t_all, n_host,
-        n_dev, blank, eos, _build.stream_ptr(dev)), "st_ctc_prefix")
+        lens.data_ptr(), psi.data_ptr(), out.data_ptr(), r, p, beams, v, t_all,
+        _build.index_ptr(index, dev), blank, eos, _build.stream_ptr(dev)), "st_ctc_prefix")
     ctc_prefix_cuda.launches += 1
     return psi, out
 

@@ -65,8 +65,8 @@ def lineage_attention(q_new: Tensor, self_k: Tensor, self_v: Tensor, lineage_tab
                       index: Tensor, beam_width: int) -> Tensor:
     """[B·K, 1, H, D] in q's dtype: q_new [B·K, 1, H, D] against the
     unpermuted cache self_k/self_v [B·K, L, H, D] through lineage_table
-    [B, K, L] int32, positions <= index (a 0-d int32 tensor: on the CPU it
-    is read on the host, on the card by the kernel)."""
+    [B, K, L] int32, positions <= index (a 0-d int32 tensor on the cache's
+    device: on the CPU it is read on the host, on the card by the kernel)."""
     return lineage.lineage_attention_reference(q_new, self_k, self_v, lineage_table,
                                                index, beam_width).contiguous()
 

@@ -70,9 +70,7 @@ def beam_candidate_topk(logits, alive_scores, *, k2, pad_id=0, sos_id=1):
 def lineage_attention(q_new, self_k, self_v, lineage_table, index, beam_width):
     """Beam self-attention over the unpermuted KV cache
     (kernels/lineage_attention.py), the op ``st_port::lineage_attention``.
-    ``index`` is an int or a 0-d int32 tensor (a traced loop's step)."""
-    if not isinstance(index, torch.Tensor):
-        index = torch.tensor(index, dtype=torch.int32)
+    ``index`` is the step's 0-d int32 tensor on the cache's device."""
     return custom_ops.lineage_attention(q_new, self_k, self_v, lineage_table, index,
                                         int(beam_width))
 
@@ -90,8 +88,8 @@ def ctc_prefix_scores(logp, state, last, cand, index, lens, *, beams: int,
     """CTC prefix scores and states of every candidate of one beam step
     (kernels/ctc_prefix.py): (ψ [R, P], states [R, P, 2, T]) from the
     log-probs [B, V, T], the hypotheses' states [R, 2, T] and last tokens
-    [R], the candidates [R, P] and the step ``index`` (an int or a 0-d
-    int32 tensor)."""
+    [R], the candidates [R, P] and the step ``index`` (a 0-d int32 tensor
+    on the log-probs' device)."""
     fn = (ctc_prefix.ctc_prefix_cuda if _on_cuda(logp)
           else ctc_prefix.ctc_prefix_reference)
     return fn(logp, state, last, cand, index, lens, beams=beams, blank=blank, eos=eos)

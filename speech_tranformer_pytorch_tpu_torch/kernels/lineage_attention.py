@@ -29,7 +29,7 @@ def lineage_attention_reference(
     self_k: torch.Tensor,      # [B·K, L, H, D] unpermuted cache (incl. index)
     self_v: torch.Tensor,      # [B·K, L, H, D]
     lineage: torch.Tensor,     # [B, K, L] int32: lane of beam k's step-j entry
-    index,                     # current position: an int or a 0-d int tensor
+    index: torch.Tensor,       # current position: a 0-d int32 tensor
     beam_width: int,
 ) -> torch.Tensor:
     """Plain version: the one-hot einsum formulation. Scores and softmax in
@@ -57,9 +57,9 @@ def lineage_attention_reference(
 def lineage_attention_cuda(q_new, self_k, self_v, lineage, index,
                            beam_width: int) -> torch.Tensor:
     """Kernel wrapper: same contract as ``lineage_attention_reference`` for
-    CUDA tensors in float32 or bfloat16. ``index`` is an int, a 0-d CPU
-    tensor (read here), or a 0-d int32 tensor on the card, which the kernel
-    reads itself (a traced decode loop's step: no host sync)."""
+    CUDA tensors in float32 or bfloat16, with ``index`` a 0-d int32 tensor
+    on the cache's device, which the kernel reads itself (clamped to
+    [0, L)): no host sync."""
     if self_k.device.type != "cuda":
         raise ValueError("lineage_attention_cuda needs CUDA tensors")
     bk, L, h, d = self_k.shape
@@ -73,25 +73,17 @@ def lineage_attention_cuda(q_new, self_k, self_v, lineage, index,
     if tuple(lineage.shape) != (b, beam_width, L) or b * beam_width != bk:
         raise ValueError(f"lineage {tuple(lineage.shape)} does not match "
                          f"[B={b}, K={beam_width}, L={L}]")
-    index_dev = None
-    if isinstance(index, torch.Tensor) and index.device.type == "cuda":
-        if index.dim() != 0 or index.dtype != torch.int32 or index.device != self_k.device:
-            raise ValueError(f"a device index must be a 0-d int32 tensor on the "
-                             f"cache's device, got {index.dtype} {tuple(index.shape)} "
-                             f"on {index.device}")
-        index_dev, index = index, 0
-    index = int(index)
-    if not 0 <= index < L or d > 256:
-        raise ValueError(f"index {index} outside [0, {L}) or head_dim {d} > 256")
+    if d > 256:
+        raise ValueError(f"head_dim {d} > 256")
     q_new, self_k, self_v = (t.contiguous() for t in (q_new, self_k, self_v))
     lineage = lineage.to(torch.int32).contiguous()
     out = torch.empty_like(q_new)
     lib = _build.library()
     _build.check(lib.st_lineage_attention(
         q_new.data_ptr(), self_k.data_ptr(), self_v.data_ptr(),
-        lineage.data_ptr(), out.data_ptr(), b, beam_width, L, h, d, index,
-        None if index_dev is None else index_dev.data_ptr(),
-        int(dt == torch.bfloat16), _build.stream_ptr(self_k.device)),
+        lineage.data_ptr(), out.data_ptr(), b, beam_width, L, h, d,
+        _build.index_ptr(index, self_k.device), int(dt == torch.bfloat16),
+        _build.stream_ptr(self_k.device)),
         "st_lineage_attention")
     lineage_attention_cuda.launches += 1
     return out

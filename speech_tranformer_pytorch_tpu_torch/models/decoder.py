@@ -11,7 +11,7 @@ over a KV cache. Cache layout per layer, for a step batch of B·K rows:
                     f32 from those values, ``MultiHeadAttention.attend_bhsd``);
                     with ``int8_kv`` both int8, with per-(B, H, 1, D)
                     scales ``cross_k_scale``/``cross_v_scale``
-and, with the tied output projection, ``cache["logits"]["table_f32"]``.
+The step index is a 0-d int32 tensor on the cache's device at every call.
 For int8 serving (``ops/quantize.decode_model``) ``Decoder.use_int8`` swaps
 the dense layers for ``Int8Linear`` and the embedding for ``Int8Embedding``.
 By default the beam search never reorders the self cache: self-attention
@@ -114,15 +114,14 @@ class DecoderLayer(nn.Module):
         return cache
 
     def decode_step(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                    index: int, mem_lens: torch.Tensor, beam_width: int,
+                    index: torch.Tensor, mem_lens: torch.Tensor, beam_width: int,
                     lineage: Optional[torch.Tensor]) -> torch.Tensor:
-        """x [B·K, 1, d] at position ``index`` (an int, or a 0-d int32
-        tensor on the cache's device), cross-attending to the first
-        ``mem_lens`` [B] (int32) frames of each utterance; writes this
-        position's k/v into ``cache`` in place (saves a copy of the cache
-        per step), or, while ``torch.export`` traces (a step inside a
-        ``while_loop``, which may not mutate its carry), puts new self K/V
-        tensors in ``cache``.
+        """x [B·K, 1, d] at position ``index`` (a 0-d int32 tensor on the
+        cache's device), cross-attending to the first ``mem_lens`` [B]
+        (int32) frames of each utterance; writes this position's k/v into
+        ``cache`` in place (saves a copy of the cache per step), or, while
+        ``torch.export`` traces (a step inside a ``while_loop``, which may
+        not mutate its carry), puts new self K/V tensors in ``cache``.
         Self-attention reads the unpermuted cache through ``lineage``, or,
         with ``lineage=None`` (beam search's ``use_lineage=False``, whose
         cache is gathered by beam every step), attends over the cache
@@ -130,17 +129,13 @@ class DecoderLayer(nn.Module):
 
         def self_attend(h):
             q_new, k_new, v_new = self.self_attn.project_qkv(h)   # [B·K,1,H,D]
-            if isinstance(index, torch.Tensor):
-                pos = index.reshape(1).long()
-                if torch.compiler.is_exporting():   # a traced loop may not write its carry
-                    cache["self_k"] = cache["self_k"].index_copy(1, pos, k_new)
-                    cache["self_v"] = cache["self_v"].index_copy(1, pos, v_new)
-                else:
-                    cache["self_k"].index_copy_(1, pos, k_new)
-                    cache["self_v"].index_copy_(1, pos, v_new)
+            pos = index.reshape(1).long()
+            if torch.compiler.is_exporting():   # a traced loop may not write its carry
+                cache["self_k"] = cache["self_k"].index_copy(1, pos, k_new)
+                cache["self_v"] = cache["self_v"].index_copy(1, pos, v_new)
             else:
-                cache["self_k"][:, index] = k_new[:, 0]
-                cache["self_v"][:, index] = v_new[:, 0]
+                cache["self_k"].index_copy_(1, pos, k_new)
+                cache["self_v"].index_copy_(1, pos, v_new)
             if lineage is None:   # a beam-gathered cache: positions <= index
                 pos_ok = torch.arange(cache["self_k"].shape[1], device=h.device) <= index
                 out = dot_product_attention(q_new, cache["self_k"], cache["self_v"],
@@ -217,18 +212,15 @@ class Decoder(nn.Module):
             return self.embed.table()
         return self.embed.weight
 
-    def _logits(self, x: torch.Tensor,
-                table_f32: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """float32 logits: compute-dtype operands, f32 accumulation and
-        result (products of bf16 values are exact in f32). ``table_f32`` is
-        the tied embedding already cast to f32, as ``init_cache`` keeps it."""
+        result (products of bf16 values are exact in f32)."""
         mesh = self.mesh
         if self.out_proj is None:
-            if table_f32 is None:
-                table_f32 = self._table().float()
             if mesh is not None:      # this rank's d_model columns
                 x = local_slice(copy_to_model(x, mesh), mesh)
-            return reduce_from_model(torch.matmul(x.float(), table_f32.t()), mesh)
+            return reduce_from_model(torch.matmul(x.float(), self._table().float().t()),
+                                     mesh)
         return gather_from_model(column_linear(self.out_proj, x, mesh), mesh).float()
 
     def _embed_scaled(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -259,7 +251,7 @@ class Decoder(nn.Module):
         """KV cache for B·beam_width step rows; ``memory`` is untiled [B,S,d].
         ``int8_kv``: int8 cross K/V (``DecoderLayer.init_layer_cache``).
         ``store(name, tensor)``, given, is handed each tensor as it is made
-        (names ``layer_0.self_k``, ``logits.table_f32``, ...) and returns
+        (names ``layer_0.self_k``, ``layer_0.cross_k``, ...) and returns
         the tensor the cache holds in its place: a static copy that a
         captured decode step reads (``decoding/beam_graph.py``). One layer
         is made at a time, so no second whole cache is alive beside it."""
@@ -274,28 +266,28 @@ class Decoder(nn.Module):
             made = layer.init_layer_cache(mem, b, max_len, int8_kv)
             cache[f"layer_{i}"] = {n: keep(f"layer_{i}.{n}", t) for n, t in made.items()}
             del made   # a stored layer's own copies go before the next is made
-        if self.out_proj is None:   # cast the tied projection once, not per step
-            cache["logits"] = {"table_f32": keep("logits.table_f32",
-                                                 self._table().float())}
         return cache
 
-    def decode_step(self, tokens: torch.Tensor, index, cache: Cache,
+    def decode_step(self, tokens: torch.Tensor, index: torch.Tensor, cache: Cache,
                     mem_lens: torch.Tensor, beam_width: int,
                     lineage: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
-        """One step at position ``index`` (an int, or a 0-d int32 tensor in a
-        traced loop). Returns (logits [B·K, V] f32, the updated cache).
+        """One step at position ``index``, a 0-d int32 tensor on the cache's
+        device (anything else is refused). Returns (logits [B·K, V] f32, the
+        updated cache).
 
         ``lineage`` [B, K, max_len] int32 names the cache lane that holds
         beam k's step-j entry; ``None`` for a cache gathered by beam
         (``DecoderLayer.decode_step``)."""
+        device = cache["layer_0"]["self_k"].device
+        if not (torch.is_tensor(index) and index.dim() == 0
+                and index.dtype == torch.int32 and index.device == device):
+            raise ValueError(f"a decode step index must be a 0-d int32 tensor on "
+                             f"{device}, got {index!r}")
         x = self._embed_scaled(tokens[:, None])                # [B·K,1,d]
-        pe = self.pos_enc.pe
-        row = (pe.index_select(0, index.reshape(1).long())
-               if isinstance(index, torch.Tensor) else pe[index:index + 1])
+        row = self.pos_enc.pe.index_select(0, index.reshape(1).long())
         x = x + row[None].to(x.dtype)
         lens = mem_lens.to(torch.int32)   # what the cross-attention kernel reads
         for i, layer in enumerate(self.layers):
             x = layer.decode_step(x, cache[f"layer_{i}"], index, lens, beam_width,
                                   lineage)
-        table_f32 = cache.get("logits", {}).get("table_f32")
-        return self._logits(self.final_norm(x), table_f32)[:, 0, :], cache
+        return self._logits(self.final_norm(x))[:, 0, :], cache

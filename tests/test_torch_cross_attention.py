@@ -211,8 +211,9 @@ def test_a_decode_step_matches_the_step_before_the_kernel():
     tokens = torch.randint(3, cfg.model.vocab_size, (b * k,), generator=g)
     lineage = torch.arange(k, dtype=torch.int32)[None, :, None].expand(b, k, max_len).clone()
     with torch.no_grad():
-        got, _ = dec.decode_step(tokens, 0, dec.init_cache(memory, max_len, k), mem_lens, k,
-                                 lineage)
+        step0 = torch.tensor(0, dtype=torch.int32)
+        got, _ = dec.decode_step(tokens, step0, dec.init_cache(memory, max_len, k), mem_lens,
+                                 k, lineage)
         # The old route: cross_k in float32, the bias made once a step.
         cache = dec.init_cache(memory, max_len, k)
         for i in range(len(dec.layers)):
@@ -223,7 +224,7 @@ def test_a_decode_step_matches_the_step_before_the_kernel():
                 attn = layer.cross_attn
                 attn.attend_bhsd = (lambda a: lambda h, ck, cv, lens: _old_attend_bhsd(
                     a, h.reshape(b, k, -1), ck, cv, bias).reshape(b * k, 1, -1))(attn)
-            want, _ = dec.decode_step(tokens, 0, cache, mem_lens, k, lineage)
+            want, _ = dec.decode_step(tokens, step0, cache, mem_lens, k, lineage)
         finally:
             for layer in dec.layers:
                 del layer.cross_attn.attend_bhsd

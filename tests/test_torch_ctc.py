@@ -71,10 +71,12 @@ def _recursion(lp: torch.Tensor, y, frames: int, eos: int):
     last, psi = torch.tensor([1], dtype=torch.int32), None
     for n, c in enumerate(y):
         psi, states = ctc_prefix.ctc_prefix_reference(
-            logp, state, last, torch.tensor([[c]], dtype=torch.int32), n, lens, beams=1, eos=eos)
+            logp, state, last, torch.tensor([[c]], dtype=torch.int32),
+            torch.tensor(n, dtype=torch.int32), lens, beams=1, eos=eos)
         state, last = states[:, 0], torch.tensor([c], dtype=torch.int32)
     whole, _ = ctc_prefix.ctc_prefix_reference(
-        logp, state, last, torch.tensor([[eos]], dtype=torch.int32), len(y), lens, beams=1, eos=eos)
+        logp, state, last, torch.tensor([[eos]], dtype=torch.int32),
+        torch.tensor(len(y), dtype=torch.int32), lens, beams=1, eos=eos)
     return float(psi[0, 0]), float(whole[0, 0])
 
 
@@ -223,8 +225,8 @@ def test_prefix_scores_only_fall():
     for n in range(6):
         cand = torch.randint(3, v, (2 * k, 5), generator=g, dtype=torch.int32)
         cand[:, -1] = 2                                                # <eos>
-        psi, states = ctc_prefix.ctc_prefix_reference(logp, state, last, cand, n, lens,
-                                                      beams=k, eos=2)
+        psi, states = ctc_prefix.ctc_prefix_reference(
+            logp, state, last, cand, torch.tensor(n, dtype=torch.int32), lens, beams=k, eos=2)
         assert bool((psi <= psi_g[:, None] + 1e-4).all())
         pick = torch.tensor([1, 3, 0, 0, 2, 3])
         psi_g = psi[torch.arange(2 * k), pick]

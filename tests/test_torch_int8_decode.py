@@ -109,8 +109,9 @@ def _port_step(model, memory, mem_lens, tokens, kv, steps=2):
         cache = model.init_cache(memory, 6, 1, kv)
         out = []
         for i, tok in enumerate(tokens[:steps]):
-            lg, cache = model.decode_step(torch.from_numpy(tok), i, cache, mem_lens, 1,
-                                          lineage)
+            lg, cache = model.decode_step(torch.from_numpy(tok),
+                                          torch.tensor(i, dtype=torch.int32), cache,
+                                          mem_lens, 1, lineage)
             out.append(lg.numpy())
     return out, cache
 

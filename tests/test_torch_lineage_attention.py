@@ -64,7 +64,8 @@ def test_matches_jax_kernel_and_reference(case):
                                     interpret=True)
     want_ref = jax_reference(*jargs, jnp.asarray(lin), jnp.int32(index), k)
     targs = [torch.from_numpy(x).to(tdt) for x in (q, ck, cv)]
-    got = lineage_attention_reference(*targs, torch.from_numpy(lin), index, k)
+    got = lineage_attention_reference(*targs, torch.from_numpy(lin),
+                                      torch.tensor(index, dtype=torch.int32), k)
     assert got.shape == (b * k, 1, h, d) and got.dtype == tdt
     for want in (want_kernel, want_ref):
         np.testing.assert_allclose(got.float().numpy(),
@@ -75,14 +76,16 @@ def test_matches_jax_kernel_and_reference(case):
 def test_interface_uses_plain_path_on_cpu():
     q, ck, cv, lin = _inputs(1, 2, 3, 10, 2, 32, 4)
     args = [torch.from_numpy(x) for x in (q, ck, cv, lin)]
+    index = torch.tensor(4, dtype=torch.int32)
     before = dict(interface.launch_counts())
-    got = interface.lineage_attention(*args, 4, 3)
+    got = interface.lineage_attention(*args, index, 3)
     assert interface.launch_counts() == before
-    torch.testing.assert_close(got, lineage_attention_reference(*args, 4, 3),
+    torch.testing.assert_close(got, lineage_attention_reference(*args, index, 3),
                                rtol=0, atol=0)
 
 
 def test_kernel_wrapper_refuses_cpu_tensor():
     q, ck, cv, lin = _inputs(2, 1, 2, 8, 2, 32, 3)
     with pytest.raises(ValueError, match="CUDA"):
-        lineage_attention_cuda(*(torch.from_numpy(x) for x in (q, ck, cv, lin)), 3, 2)
+        lineage_attention_cuda(*(torch.from_numpy(x) for x in (q, ck, cv, lin)),
+                               torch.tensor(3, dtype=torch.int32), 2)

@@ -108,8 +108,8 @@ def test_decode_steps_match(pair):
             variables, jnp.asarray(tokens), jnp.int32(i), jcache, jlens, k,
             jnp.asarray(lineage), method=JaxModel.decode_step)
         with torch.no_grad():
-            logits, cache = model.decode_step(_t(tokens), i, cache, lens, k,
-                                              _t(lineage))
+            logits, cache = model.decode_step(_t(tokens), torch.tensor(i, dtype=torch.int32),
+                                              cache, lens, k, _t(lineage))
         assert logits.shape == (2 * k, 64)
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
         lineage[:, :, :i + 1] = rng.integers(0, k, size=(2, k, i + 1))
