@@ -1836,7 +1836,8 @@ def main_path(torch, dev, int8: bool = False):
 
     # The batch profile_decode.py traces: base preset, seeded random
     # weights, 8 int16 utterances of 4-6 s, beam 5, max_len 100; with
-    # ``int8`` the int8 weights and int8 cross-K/V cache.
+    # ``int8`` the int8 weights and int8 cross-K/V cache. The timed call is
+    # the shape's second: its prologue and steps are graph replays.
     cfg, params, rec, audio, lens = smoke_batch(dev, int8=int8)
     warm = rec.decode_result(audio, lens, **DECODE)
     if not bool(torch.isfinite(warm.scores[:, 0]).all()):
@@ -1845,11 +1846,13 @@ def main_path(torch, dev, int8: bool = False):
     torch.cuda.reset_peak_memory_stats(dev)
 
     interface.reset_launch_counts()
+    interface.reset_decode_step_counts()
     t0 = time.perf_counter()
     hyps = rec.decode_batch(audio, lens, **DECODE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = interface.launch_counts()
+    step_kinds = interface.decode_step_counts()
 
     steps = rec.last_steps
     v = cfg.model.vocab_size
@@ -1858,6 +1861,10 @@ def main_path(torch, dev, int8: bool = False):
     want = expected_serve_launches(cfg, steps, int8, DECODE["beam_size"])
     if steps <= 0 or counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
+    # The shape's second call: one prologue replay, then a replay a step.
+    if step_kinds != step_counts(replays=steps, prologue_replays=1):
+        raise AssertionError(f"decode step counts {step_kinds}: expected one prologue "
+                             f"replay and {steps} step replays")
     audio_s = float(lens.sum()) / cfg.features.sample_rate
     greedy = {}
     if int8:   # the same batch decoded greedily (beam 1), also with exact counts
@@ -1883,6 +1890,7 @@ def main_path(torch, dev, int8: bool = False):
         "wall_s": wall, "audio_s": audio_s,
         "rtf": wall / audio_s, "decode_steps": steps,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "decode_step_counts": step_kinds,
         "launches": counts, "hyp_lens": [len(h) for h in hyps]}})
     if not int8:
         gathered_cache_check(torch, dev, params, audio, lens)
@@ -1917,6 +1925,120 @@ def _mix_batches(torch, cfg, buckets=MIX_BUCKETS, batch: int = 8, ratio: float =
     return out[::-1]
 
 
+def step_counts(**counts):
+    """A whole ``interface.decode_step_counts()``: ``counts``, every other
+    kind 0."""
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+
+    return {**{kind: 0 for kind in interface.decode_step_counts()}, **counts}
+
+
+def _prologue_bits(torch, dev, rec, batches, decode: dict) -> dict:
+    """Each batch's prologue on a new arena (``beam_graph.StepGraphs.prologue``),
+    run eagerly at its first call, then, after the call's search has
+    captured it, replayed: the encoder's memory (copied by a probe into a
+    buffer made at the eager call, so the capture copies into the same
+    one), the cross K/V, the CTC log-probs and lengths, the initial carry,
+    the int32 lengths, the index and the first stop flag of the replay must
+    equal the eager prologue's bit for bit."""
+    from speech_tranformer_pytorch_tpu_torch.decoding import beam_graph
+
+    real, probe = beam_graph.encode_on, {}
+
+    def probing(model, feats, flens, device):
+        memory, mem_lens = real(model, feats, flens, device)
+        held = probe.get(tuple(memory.shape))
+        if held is None:   # at a shape's eager call, outside every capture
+            held = probe[tuple(memory.shape)] = torch.empty_like(memory)
+        held.copy_(memory)
+        return memory, mem_lens
+
+    def snapshot(entry, memory_shape):
+        out = {name: view.clone() for name, view in entry.views.items()}
+        out["memory"] = probe[memory_shape].clone()
+        return out
+
+    graphs, differ, compared = beam_graph.StepGraphs(dev), [], 0
+    beam_graph.encode_on = probing
+    try:
+        with torch.no_grad():
+            for audio, lens, max_len in batches:
+                kw = dict(decode, max_len=max_len, int8_kv=rec.int8_kv,
+                          ctc_weight=rec.ctc_weight)
+                entry = graphs.prologue(rec.model, audio, lens, rec.cfg.features, **kw)
+                shape = (audio.shape[0], entry.key[3], rec.cfg.model.d_model)
+                eager = snapshot(entry, shape)
+                graphs._search(rec.model, entry, True)   # captures it
+                replayed = snapshot(graphs.prologue(rec.model, audio, lens,
+                                                    rec.cfg.features, **kw), shape)
+                torch.cuda.synchronize()
+                compared += len(eager)
+                differ += [{"samples": int(audio.shape[1]), "tensor": name}
+                           for name, t in eager.items() if not torch.equal(t, replayed[name])]
+    finally:
+        beam_graph.encode_on = real
+    if differ:
+        raise AssertionError(f"replayed prologues differ from the eager ones: {differ}")
+    return {"shapes": len(batches), "tensors_equal": compared}
+
+
+def _pcm_graph_passes(torch, dev, rec, cfg, batches, decode: dict, eager: dict,
+                      int8: bool) -> dict:
+    """The batches served from their PCM on the model's arena
+    (``beam_graph.graph_beam_decode``, the ``Recognizer``'s route on a
+    card), on a new arena, largest first: a pass whose calls each run the
+    prologue and steps eagerly and capture both, then a pass whose calls
+    each replay one prologue and every step. Each call's launches are
+    ``expected_serve_launches``, and its hypotheses, lengths, steps and
+    scores ``eager``'s (``eager_beam_search`` after the same features and
+    encoder). Then ``_prologue_bits``."""
+    from speech_tranformer_pytorch_tpu_torch.decoding import beam_graph
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+
+    beam_graph._GRAPHS.pop(rec.model, None)
+    steps = sum(r.steps for r, _ in eager.values())
+    n = len(batches)
+
+    def run_pass():
+        interface.reset_decode_step_counts()
+        walls, differ = [], []
+        for i, (audio, lens, max_len) in enumerate(batches):
+            interface.reset_launch_counts()
+            t0 = time.perf_counter()
+            r = beam_graph.graph_beam_decode(rec.model, audio, lens, cfg.features,
+                                             max_len=max_len, int8_kv=rec.int8_kv,
+                                             ctc_weight=rec.ctc_weight, **decode)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = interface.launch_counts()
+            want = expected_serve_launches(cfg, r.steps, int8, decode["beam_size"])
+            if counts != want:
+                raise AssertionError(f"graph_beam_decode: launch counts {counts}, "
+                                     f"expected {want}")
+            e = eager[i][0]
+            if (r.steps != e.steps or not torch.equal(r.tokens, e.tokens)
+                    or not torch.equal(r.lengths, e.lengths)
+                    or not torch.equal(r.scores, e.scores)):
+                differ.append({"samples": int(audio.shape[1]), "steps": [r.steps, e.steps],
+                               "score_diff": float((r.scores - e.scores).abs().max())})
+        if differ:
+            raise AssertionError(f"PCM graph and eager decodes differ: {differ}")
+        return walls, interface.decode_step_counts()
+
+    first_s, first_counts = run_pass()
+    replayed_s, replay_counts = run_pass()
+    want_counts = [step_counts(captures=n, eager_steps=steps, prologue_captures=n,
+                               prologue_eager=n),
+                   step_counts(replays=steps, prologue_replays=n)]
+    if [first_counts, replay_counts] != want_counts:
+        raise AssertionError(f"PCM decode step counts {first_counts}, {replay_counts}; "
+                             f"expected {want_counts}")
+    beam_graph._GRAPHS.pop(rec.model, None)
+    return {"decode_step_counts": want_counts, "first_s": sum(first_s),
+            "replayed_s": sum(replayed_s), "replayed_call_s": replayed_s,
+            "prologue_bits": _prologue_bits(torch, dev, rec, batches, decode)}
+
+
 def graph_decode(torch, dev):
     """The beam step replayed as CUDA graphs (``decoding/beam_graph.py``)
     against the eager search, at the ``base`` preset's beam-5 float path
@@ -1933,7 +2055,9 @@ def graph_decode(torch, dev):
     every step and captures nothing; after both, the card's memory peak
     stays under the build's. Float path only: a pass smallest first on a
     new arena grows it at every shape and captures every shape seen again
-    each time (1 + 2 + ... + 6), after which a pass replays only."""
+    each time (1 + 2 + ... + 6), after which a pass replays only. Then
+    both paths from the PCM (``_pcm_graph_passes``: the ``Recognizer``'s
+    route, whose prologue replays once a call after a shape's first)."""
     from speech_tranformer_pytorch_tpu_torch.config import get_config
     from speech_tranformer_pytorch_tpu_torch.data.features import extract_features
     from speech_tranformer_pytorch_tpu_torch.decoding import beam_graph
@@ -2001,9 +2125,8 @@ def graph_decode(torch, dev):
         arena_bytes = sum(b.numel() * b.element_size() for b in arena._buffers.values())
         eager, eager_counts = run_pass(eager_beam_search, shapes)
         steps = sum(r.steps for r, _ in eager.values())
-        want_counts = [{"captures": len(batches), "replays": 0, "eager_steps": steps},
-                       {"captures": 0, "replays": steps, "eager_steps": 0},
-                       {"captures": 0, "replays": 0, "eager_steps": steps}]
+        want_counts = [step_counts(captures=len(batches), eager_steps=steps),
+                       step_counts(replays=steps), step_counts(eager_steps=steps)]
         if [first_counts, replay_counts, eager_counts] != want_counts:
             raise AssertionError(f"decode step counts {first_counts}, {replay_counts}, "
                                  f"{eager_counts}; expected {want_counts}")
@@ -2041,8 +2164,8 @@ def graph_decode(torch, dev):
             grown, grown_counts = run_pass(beam_graph.graph_beam_search, shapes[::-1])
             again, again_counts = run_pass(beam_graph.graph_beam_search, shapes)
             n = len(batches)
-            want_growth = [{"captures": n * (n + 1) // 2, "replays": 0, "eager_steps": steps},
-                           {"captures": 0, "replays": steps, "eager_steps": 0}]
+            want_growth = [step_counts(captures=n * (n + 1) // 2, eager_steps=steps),
+                           step_counts(replays=steps)]
             if [grown_counts, again_counts] != want_growth:
                 raise AssertionError(f"growing arena: decode step counts {grown_counts}, "
                                      f"{again_counts}; expected {want_growth}")
@@ -2052,6 +2175,9 @@ def graph_decode(torch, dev):
                             and torch.equal(g.scores, eager[i][0].scores)):
                         raise AssertionError(f"growing arena: {batches[i][0].shape} differs")
             res["growth_counts"] = want_growth
+        res["pcm"] = _pcm_graph_passes(torch, dev, rec, cfg, batches,
+                                       dict(beam_size=beam, alpha=DECODE["alpha"]), eager,
+                                       int8)
         report["int8" if int8 else "float"] = res
         del rec, arena
         beam_graph._GRAPHS.clear()
@@ -2140,7 +2266,8 @@ def ctc_decode(torch, dev):
     search (``beam_graph.graph_beam_search``, a pass capturing every shape
     and a pass replaying) against the eager one after the same encoding:
     hypotheses, lengths, steps and scores equal, every call's launches
-    ``expected_serve_launches`` (one prune and one CTC scorer a step)."""
+    ``expected_serve_launches`` (one prune and one CTC scorer a step);
+    then the same from the PCM (``_pcm_graph_passes``)."""
     from speech_tranformer_pytorch_tpu_torch.config import config_from_dict
     from speech_tranformer_pytorch_tpu_torch.data.features import extract_features
     from speech_tranformer_pytorch_tpu_torch.decoding import beam_graph
@@ -2191,9 +2318,8 @@ def ctc_decode(torch, dev):
     replayed, replay_counts = run_pass(beam_graph.graph_beam_search)
     eager, eager_counts = run_pass(eager_beam_search)
     steps = sum(r.steps for r, _ in eager.values())
-    want_counts = [{"captures": len(batches), "replays": 0, "eager_steps": steps},
-                   {"captures": 0, "replays": steps, "eager_steps": 0},
-                   {"captures": 0, "replays": 0, "eager_steps": steps}]
+    want_counts = [step_counts(captures=len(batches), eager_steps=steps),
+                   step_counts(replays=steps), step_counts(eager_steps=steps)]
     if [first_counts, replay_counts, eager_counts] != want_counts:
         raise AssertionError(f"decode step counts {first_counts}, {replay_counts}, "
                              f"{eager_counts}; expected {want_counts}")
@@ -2210,17 +2336,20 @@ def ctc_decode(torch, dev):
     if differ:
         raise AssertionError(f"hybrid graph and eager decodes differ: {differ}")
     arena = beam_graph._GRAPHS[rec.model]
+    arena_bytes = sum(x.numel() * x.element_size() for x in arena._buffers.values())
+    del arena
+    pcm = _pcm_graph_passes(torch, dev, rec, cfg, batches, dict(beam_size=beam, alpha=1.0),
+                            eager, False)
     emit({"ctc_decode": {
         "preset": "librispeech", "ctc_weight": weight, "steps": steps,
-        "decode_step_counts": want_counts,
-        "arena_bytes": sum(x.numel() * x.element_size() for x in arena._buffers.values()),
+        "decode_step_counts": want_counts, "pcm": pcm, "arena_bytes": arena_bytes,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
         "finite": all(bool(torch.isfinite(r.scores).all()) for r, _ in eager.values()),
         "shapes": [{"samples": int(batches[i][0].shape[1]), "max_len": batches[i][2],
                     "steps": eager[i][0].steps, "eager_s": eager[i][1],
                     "first_s": first[i][1], "replayed_s": replayed[i][1]}
                    for i in range(len(batches))]}})
-    del rec, arena
+    del rec
     beam_graph._GRAPHS.clear()
     return rec_kernel, total
 

@@ -199,10 +199,12 @@ def initial_carry(b: int, k: int, max_len: int, device, own, use_lineage: bool,
     ``ctc_state`` ([B, 2, T'], ``ctc_prepare``'s) every beam's CTC state
     and ψ = 0."""
     i32 = dict(dtype=torch.int32, device=device)
+    alive_scores = torch.full((b, k), NEG_INF, device=device)
+    alive_scores[:, 0].fill_(0.0)   # made on the device: a CUDA graph can capture it
     carry = dict(
         cur_tokens=torch.full((b, k), SOS, **i32),
         alive_tokens=torch.full((b, k, max_len), PAD, **i32),
-        alive_scores=torch.tensor([0.0] + [NEG_INF] * (k - 1), device=device).repeat(b, 1),
+        alive_scores=alive_scores,
         fin_tokens=torch.full((b, k, max_len), PAD, **i32),
         fin_scores=torch.full((b, k), NEG_INF, device=device),
         fin_lens=torch.zeros((b, k), **i32), cache=own)
@@ -358,13 +360,15 @@ def check_ctc_search(model: SpeechTransformer, int8: bool) -> None:
                          "decode.int8_weights and decode.int8_kv_cache off")
 
 
-def replays_graphs(model: SpeechTransformer, memory, max_len: int,
+def replays_graphs(model: SpeechTransformer, device: torch.device, max_len: int,
                    use_lineage: bool) -> bool:
-    """Whether ``beam_search`` replays its steps as CUDA graphs: for memory
-    on a card, with the lineage table and at least one step, for a model
-    without a mesh (tensor-parallel collectives stay eager), and not while
-    ``torch.export`` traces (the exported loop is a ``while_loop``)."""
-    return (use_lineage and memory.device.type == "cuda" and max_len > 0
+    """Whether a beam search on ``device`` replays CUDA graphs
+    (``beam_search`` its steps, ``recognize.Recognizer`` each call's
+    prologue too): on a card, with the lineage table and at least one
+    step, for a model without a mesh (tensor-parallel collectives stay
+    eager), and not while ``torch.export`` traces (the exported loop is a
+    ``while_loop``)."""
+    return (use_lineage and device.type == "cuda" and max_len > 0
             and model.decoder.mesh is None and not torch.compiler.is_exporting())
 
 
@@ -389,7 +393,7 @@ def beam_search(
         check_ctc_search(model, int8_kv)
     kw = dict(beam_size=beam_size, max_len=max_len, alpha=alpha, int8_kv=int8_kv,
               early_stop=early_stop, ctc_weight=ctc_weight)
-    if replays_graphs(model, memory, max_len, use_lineage):
+    if replays_graphs(model, memory.device, max_len, use_lineage):
         from .beam_graph import graph_beam_search
 
         return graph_beam_search(model, memory, mem_lens, **kw)

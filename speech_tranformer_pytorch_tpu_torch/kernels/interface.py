@@ -6,9 +6,11 @@ fails to build or launch raises. Each kernel wrapper counts its launches;
 ``launch_counts`` reads them and ``reset_launch_counts`` zeroes them.
 Beside them ``decode_step_counts`` counts how decode steps were issued:
 CUDA graphs captured and replayed (``decoding/beam_graph.py``), and steps
-run eagerly (``decoding/beam.decode_loop``). A captured step's launches
-are taken back after its capture and credited at each replay
-(``credit_launches``), so the launch counts stay the kernels the port ran.
+run eagerly (``decoding/beam.decode_loop``), and likewise how each served
+call's prologue (features, encoder, caches) ran on the graph path. A
+captured graph's launches are taken back after its capture and credited
+at each replay (``credit_launches``), so the launch counts stay the
+kernels the port ran.
 
 The serving kernels (beam prune, lineage attention, decode
 cross-attention, the flash forward) are reached through their
@@ -235,13 +237,16 @@ def credit_launches(counts: Dict[str, int], times: int = 1) -> None:
         _WRAPPERS[name].launches += n * times
 
 
-_DECODE_STEPS = {"captures": 0, "replays": 0, "eager_steps": 0}
+_DECODE_STEPS = {"captures": 0, "replays": 0, "eager_steps": 0,
+                 "prologue_captures": 0, "prologue_replays": 0, "prologue_eager": 0}
 
 
 def count_decode_steps(kind: str, n: int = 1) -> None:
     """Count ``n`` decode steps issued as ``kind``: "captures" (a step
     captured as a CUDA graph), "replays" (a graph replayed) or
-    "eager_steps"."""
+    "eager_steps"; or ``n`` call prologues of the graph path
+    (``beam_graph.graph_beam_decode``) as "prologue_captures",
+    "prologue_replays" or "prologue_eager"."""
     _DECODE_STEPS[kind] += n
 
 

@@ -77,7 +77,7 @@ class SpeechTransformer(nn.Module):
                              self.ctc.weight.float().t()).unflatten(0, memory.shape[:2])
         logp = torch.log_softmax(logits, dim=-1)
         pad = torch.full((logp.shape[-1],), LOGZERO, device=logp.device)
-        pad[CTC_BLANK] = 0.0
+        pad[CTC_BLANK].fill_(0.0)   # on the device: a CUDA graph can capture it
         valid = mask_ops.length_mask(mem_lens, logp.shape[1])[..., None]
         return torch.where(valid, logp, pad)
 

@@ -12,7 +12,8 @@ device time, for each of the program's spans (``st.*``,
 ``utils/profiling.span_stats``) its count, host time, launches per decode
 step and the device time its launches caused, and how the profiled call's
 decode steps were issued (``kernels/interface.decode_step_counts``: graph
-replays, captures, eager steps). ``chip_smoke.py`` serves
+replays, captures, eager steps, and the call prologues replayed, captured
+and run eagerly). ``chip_smoke.py`` serves
 the same batch through ``smoke_batch``, so the trace describes the path
 it measures.
 """

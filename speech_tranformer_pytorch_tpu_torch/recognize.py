@@ -26,7 +26,8 @@ from .data.pipeline import (BucketedBatcher, ManifestDataset, _frames_for_sample
 from .data.tokenizer import EOS, load_tokenizer
 from .decoding import (BeamResult, GreedyResult, beam_decode, best_hypotheses,
                        greedy_decode, tokens_to_lists)
-from .decoding.beam import check_ctc_search
+from .decoding.beam import check_ctc_search, replays_graphs
+from .decoding.beam_graph import graph_beam_decode
 from .device import DeviceLike, resolve_device
 from .models import SpeechTransformer
 from .models.modules import subsampled_lengths
@@ -105,7 +106,18 @@ class Recognizer:
                 alpha: float) -> Union[BeamResult, GreedyResult]:
         """Decode the rows this process holds; with a mesh, through the
         sharded builders (``parallel/decode.py``), which gather every data
-        rank's rows."""
+        rank's rows. A beam search on a card without a mesh starts from the
+        PCM on the model's graph arena (``beam_graph.graph_beam_decode``:
+        the features, encoder and caches replayed as one CUDA graph a call
+        shape); everything else extracts the features, then decodes."""
+        if (beam_size > 1 and self.mesh is None
+                and replays_graphs(self.model, self.device, max_len, True)):
+            result = graph_beam_decode(self.model, audio_int16, sample_lens,
+                                       self.cfg.features, beam_size=beam_size,
+                                       max_len=max_len, alpha=alpha, int8_kv=self.int8_kv,
+                                       ctc_weight=self.ctc_weight)
+            self.last_steps = result.steps
+            return result
         feats, frame_lens = extract_features(audio_int16, sample_lens,
                                              self.cfg.features, device=self.device)
         if self.mesh is not None:

@@ -14,8 +14,6 @@ finishes, and decode at alpha 0, where the early stop then ends the
 search at 4-7 of its 10 steps; with random weights and alpha 1 it runs
 them all."""
 
-import types
-
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -167,7 +165,9 @@ def test_eager_paths_count_eager_steps_and_no_replay(served, path):
     steps = _decode(served, path)
     assert steps > 0
     assert interface.decode_step_counts() == {"captures": 0, "replays": 0,
-                                              "eager_steps": steps}
+                                              "eager_steps": steps,
+                                              "prologue_captures": 0, "prologue_replays": 0,
+                                              "prologue_eager": 0}
 
 
 def test_exported_program_captures_and_replays_nothing(served):
@@ -179,7 +179,9 @@ def test_exported_program_captures_and_replays_nothing(served):
                                                   frame_lens.to(torch.int32))
     # The exported loop is one while_loop: no Python step, no graph.
     assert interface.decode_step_counts() == {"captures": 0, "replays": 0,
-                                              "eager_steps": 0}
+                                              "eager_steps": 0,
+                                              "prologue_captures": 0, "prologue_replays": 0,
+                                              "prologue_eager": 0}
     live = beam_decode(rec.model, feats, frame_lens, beam_size=BEAM, max_len=MAX_LEN,
                        device="cpu", early_stop=False)
     assert torch.equal(tokens, live.tokens) and torch.equal(lengths, live.lengths)
@@ -187,8 +189,7 @@ def test_exported_program_captures_and_replays_nothing(served):
 
 def test_only_a_card_with_lineage_no_mesh_and_no_export_replays_graphs(monkeypatch):
     model = _model()
-    card = types.SimpleNamespace(device=torch.device("cuda"))
-    cpu = types.SimpleNamespace(device=torch.device("cpu"))
+    card, cpu = torch.device("cuda"), torch.device("cpu")
     assert replays_graphs(model, card, MAX_LEN, use_lineage=True)
     assert not replays_graphs(model, cpu, MAX_LEN, use_lineage=True)
     assert not replays_graphs(model, card, MAX_LEN, use_lineage=False)
