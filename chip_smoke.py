@@ -1812,7 +1812,8 @@ def expected_serve_launches(cfg, steps: int, int8: bool, beam: int, ring: int = 
     (beam search, or greedy decoding at ``beam == 1``); an encoder layer on
     a ring of ``ring`` ranks runs one flash forward per key block. A hybrid
     CTC/attention search (``decode.ctc_weight`` > 0) runs its prune as the
-    pre-beam and one CTC prefix scorer a step."""
+    pre-beam and one CTC prefix scorer a step; a Conformer encoder one
+    relative-position attention a layer and no flash forward."""
     from speech_tranformer_pytorch_tpu_torch.kernels import interface
 
     m = cfg.model
@@ -1822,6 +1823,8 @@ def expected_serve_launches(cfg, steps: int, int8: bool, beam: int, ring: int = 
                  "lineage_attention": m.num_decoder_layers * steps,
                  "cross_attention_decode": m.num_decoder_layers * steps,
                  "flash_fwd": m.num_encoder_layers * ring})
+    if m.encoder == "conformer":   # relative-position attention, no flash forward
+        want.update(flash_fwd=0, relpos_attention=m.num_encoder_layers)
     if int8:   # + the cross K and V projections of init_cache
         want["int8_matmul"] = m.num_decoder_layers * (layer_step * steps + 2)
         want["int8_ffn"] = m.num_decoder_layers * steps
@@ -2342,6 +2345,213 @@ def ctc_decode(torch, dev):
                             eager, False)
     emit({"ctc_decode": {
         "preset": "librispeech", "ctc_weight": weight, "steps": steps,
+        "decode_step_counts": want_counts, "pcm": pcm, "arena_bytes": arena_bytes,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "finite": all(bool(torch.isfinite(r.scores).all()) for r, _ in eager.values()),
+        "shapes": [{"samples": int(batches[i][0].shape[1]), "max_len": batches[i][2],
+                    "steps": eager[i][0].steps, "eager_s": eager[i][1],
+                    "first_s": first[i][1], "replayed_s": replayed[i][1]}
+                   for i in range(len(batches))]}})
+    del rec
+    beam_graph._GRAPHS.clear()
+    return rec_kernel, total
+
+
+# The Conformer's relative-position attention (``kernels/relpos_attention.py``)
+# at the `conformer.serve.ls-long-b32` cell's three bucket shapes (B 32,
+# H 8, D 64, T' 349 / 499 / 749 with lengths from T' down to the bucket's
+# previous boundary), at T' 1, with an utterance of length 0 padded, and at
+# H 4 / D 128; q, k, v the views of one fused [B, T', 3, H, D] projection,
+# as the model hands them. Within 2e-2 of each output plus 2e-2 relative of
+# the plain version (float32 of the same bf16 values: the kernel rounds the
+# softmax weights to bf16 before P·V at other points of its online softmax,
+# and rounds the output to bf16, a relative step of 2^-8; FLASH_TOL's bf16
+# reason), bit-identical on a second call. Timed at the 3000 bucket beside
+# its bound, the plain version and the materialised route (ESPnet's, bf16:
+# the [B, H, T', 2T'-1] position term, ``rel_shift``, softmax, P·V). Its
+# kernels are not counted by the profiler (a second profiler session in a
+# process can read no device events, and `check_ctc_prefix` counts by one):
+# the wrapper makes one launch a call.
+RELPOS_CASES = (("bucket_1400", 32, 349, 8, 64, 249), ("bucket_2000", 32, 499, 8, 64, 349),
+                ("bucket_3000", 32, 749, 8, 64, 499), ("t1", 2, 1, 8, 64, 0),
+                ("zero_length", 3, 100, 8, 64, -1), ("h4_d128", 4, 300, 4, 128, 120))
+RELPOS_TOL = (2e-2, 2e-2)
+CONFORMER_BUCKETS = (1400, 2000, 3000)   # portbench/mixes/serve.ls-long-b32.json
+CONFORMER_BATCH = 32
+
+
+def _relpos_inputs(torch, dev, g, b, t, h, d, low):
+    """(q, k, v, p, u, vb, lengths int32) of one case; ``low`` -1 gives an
+    utterance of length 0 among full ones."""
+    qkv = torch.randn(b, t, 3, h, d, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    p = torch.randn(2 * t - 1, h, d, generator=g, device=dev).to(torch.bfloat16)
+    u, vb = (0.5 * torch.randn(2, h, d, generator=g, device=dev)).to(torch.bfloat16).unbind(0)
+    if low < 0:
+        lens = torch.tensor([t, 0] + [t // 3] * (b - 2), device=dev)
+    else:
+        lens = torch.linspace(t, max(low, 1 if t > 1 else t), b, device=dev).round()
+        if t == 1:
+            lens = torch.tensor([1, 0][:b], device=dev)
+    return q, k, v, p, u, vb, lens.int().contiguous()
+
+
+def _relpos_materialised(torch, q, k, v, p, u, vb, lens):
+    """ESPnet's route in bf16: both score terms as GEMMs, the position term
+    [B, H, T, 2T-1] shifted by its pad-and-view, masked softmax, P·V."""
+    b, t, h, d = q.shape
+    qt = q.transpose(1, 2)
+    ac = torch.matmul(qt + u[:, None], k.transpose(1, 2).transpose(-1, -2))
+    bd = torch.matmul(qt + vb[:, None], p.permute(1, 2, 0))                # [B, H, T, 2T-1]
+    n = bd.shape[-1]
+    bd = torch.cat([bd.new_zeros(b, h, t, 1), bd], -1).view(b, h, n + 1, t)[:, :, 1:]
+    bd = bd.reshape(b, h, t, n)[..., :t]
+    keep = torch.arange(t, device=q.device)[None, :] < lens[:, None]
+    s = ((ac + bd) / math.sqrt(d)).masked_fill(~keep[:, None, None, :], float("-inf"))
+    return torch.matmul(torch.softmax(s, -1), v.transpose(1, 2)).transpose(1, 2)
+
+
+def check_relpos_attention(torch, dev):
+    from portbench.work.conformer import relpos_counts
+    from speech_tranformer_pytorch_tpu_torch.kernels import relpos_attention as rp
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    errs, timed = {}, None
+    for name, b, t, h, d, low in RELPOS_CASES:
+        args = _relpos_inputs(torch, dev, g, b, t, h, d, low)
+        got = rp.relpos_attention_cuda(*args)
+        again = rp.relpos_attention_cuda(*args)
+        want = rp.relpos_attention_reference(*args)
+        torch.cuda.synchronize()
+        err = check_close(f"relpos_attention[{name}]", got, want, *RELPOS_TOL)
+        same = bool(torch.equal(got, again))
+        emit({"check": {"name": f"relpos_attention[{name}]", "shape": [b, t, h, d],
+                        "lengths": [int(args[-1].min()), int(args[-1].max())],
+                        "max_abs_err": err, "second_call_bit_equal": same}})
+        if not same:
+            raise AssertionError(f"relpos_attention[{name}]: differs on a second call")
+        errs[name] = err
+        if name == "bucket_3000":
+            timed = args
+    ms = device_ms(torch, lambda: rp.relpos_attention_cuda(*timed))
+    plain_ms = device_ms(torch, lambda: rp.relpos_attention_reference(*timed), reps=2,
+                         rounds=3)
+    library_ms = device_ms(torch, lambda: _relpos_materialised(torch, *timed), reps=5,
+                           rounds=3)
+    q = timed[0]
+    bound_ms, bound_by = bound(*relpos_counts(timed[-1].tolist(), q.shape[2], q.shape[3]),
+                               H100_BF16_FLOP_PER_S)
+    rec = dict(name="relpos_attention", source=f"{PKG}/csrc/relpos_attention.cu",
+               replaces="none: the port's own (the JAX package has no Conformer)",
+               max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms,
+               library_note="ESPnet's materialised route in bf16 (GEMMs, rel_shift, "
+                            "softmax, P·V)", shape=list(q.shape), errs=errs)
+    emit({"check": rec})
+    return rec
+
+
+def conformer_decode(torch, dev, check_kernel: bool = True):
+    """The hybrid CTC/attention search of the `conformer.serve.ls-long-b32`
+    cell (``portbench/configs/conformer.json``: 12 Conformer blocks + 6
+    decoder layers, V 5000, CTC weight 0.3) on a ``Recognizer`` on seeded
+    weights (<eos>'s row zeroed, BatchNorm running statistics drawn far from
+    the identity), one batch of 32 in each bucket of the cell's mix: the
+    kernel checked first (``check_relpos_attention``), then the graph
+    search against the eager one after the same encoding (hypotheses,
+    lengths, steps and scores equal; every call's launches exact: 12
+    ``relpos_attention`` and no ``flash_fwd`` in the encoder), then the same
+    from the PCM (``_pcm_graph_passes``: prologue replays = calls, step
+    replays = Σ steps, the replayed prologue's memory and CTC log-probs
+    bit-equal to the eager one's). ``check_kernel`` False: the kernel check
+    ran as its own phase."""
+    from speech_tranformer_pytorch_tpu_torch.config import config_from_dict
+    from speech_tranformer_pytorch_tpu_torch.data.features import extract_features
+    from speech_tranformer_pytorch_tpu_torch.decoding import beam_graph
+    from speech_tranformer_pytorch_tpu_torch.decoding.beam import eager_beam_search, encode_on
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+    from speech_tranformer_pytorch_tpu_torch.models import SpeechTransformer
+    from speech_tranformer_pytorch_tpu_torch.recognize import Recognizer
+
+    rec_kernel = check_relpos_attention(torch, dev) if check_kernel else None
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench",
+                           "configs", "conformer.json")) as f:
+        cfg = config_from_dict(json.load(f)["config"]).validate()
+    beam, weight = cfg.decode.beam_size, cfg.decode.ctc_weight
+    gen = torch.Generator().manual_seed(0)
+    model = SpeechTransformer(cfg.model).init_weights(gen)
+    with torch.no_grad():
+        model.decoder.embed.weight[2].zero_()
+        for layer in model.encoder.layers:
+            norm = layer.conv.norm
+            norm.running_mean.normal_(0.0, 0.3, generator=gen)
+            norm.running_var.uniform_(0.5, 2.0, generator=gen)
+    rec = Recognizer(cfg, {k: t.to(dev) for k, t in model.state_dict().items()}, device=dev)
+    del model
+    torch.cuda.reset_peak_memory_stats(dev)
+    batches = _mix_batches(torch, cfg, CONFORMER_BUCKETS, CONFORMER_BATCH, CTC_RATIO)
+    encoded, total = {}, {k: 0 for k in interface.launch_counts()}
+
+    def serve(fn, i):
+        audio, lens, max_len = batches[i]
+        interface.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            feats, flens = extract_features(audio, lens, cfg.features, device=dev)
+            memory, mem_lens = encode_on(rec.model, feats, flens, dev)
+            first, first_lens = encoded.setdefault(i, (memory, mem_lens))
+            r = fn(rec.model, first, first_lens, beam_size=beam, max_len=max_len, alpha=1.0,
+                   ctc_weight=weight)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = interface.launch_counts()
+        want = expected_serve_launches(cfg, r.steps, False, beam)
+        if r.steps <= 0 or counts != want:
+            raise AssertionError(f"{fn.__name__}: launch counts {counts}, expected {want}")
+        for name, c in counts.items():
+            total[name] += c
+        return r, wall
+
+    def run_pass(fn):
+        interface.reset_decode_step_counts()
+        out = {i: serve(fn, i) for i in range(len(batches))}
+        return out, interface.decode_step_counts()
+
+    first, first_counts = run_pass(beam_graph.graph_beam_search)
+    replayed, replay_counts = run_pass(beam_graph.graph_beam_search)
+    eager, eager_counts = run_pass(eager_beam_search)
+    steps = sum(r.steps for r, _ in eager.values())
+    want_counts = [step_counts(captures=len(batches), eager_steps=steps),
+                   step_counts(replays=steps), step_counts(eager_steps=steps)]
+    if [first_counts, replay_counts, eager_counts] != want_counts:
+        raise AssertionError(f"decode step counts {first_counts}, {replay_counts}, "
+                             f"{eager_counts}; expected {want_counts}")
+    differ = []
+    for i, (e, _) in eager.items():
+        for tag, (g, _) in (("first", first[i]), ("replayed", replayed[i])):
+            if (g.steps != e.steps or not torch.equal(g.tokens, e.tokens)
+                    or not torch.equal(g.lengths, e.lengths)
+                    or not torch.equal(g.scores, e.scores)):
+                differ.append({"pass": tag, "samples": int(batches[i][0].shape[1]),
+                               "steps": [g.steps, e.steps],
+                               "score_diff": float((g.scores - e.scores).abs().max()),
+                               "tokens_equal": bool(torch.equal(g.tokens, e.tokens))})
+    if differ:
+        raise AssertionError(f"Conformer graph and eager decodes differ: {differ}")
+    arena = beam_graph._GRAPHS[rec.model]
+    arena_bytes = sum(x.numel() * x.element_size() for x in arena._buffers.values())
+    del arena
+    pcm = _pcm_graph_passes(torch, dev, rec, cfg, batches, dict(beam_size=beam, alpha=1.0),
+                            eager, False)
+    encoder_ms = {}     # the encoder alone at each bucket's batch, features excluded
+    with torch.no_grad():
+        for audio, lens, _ in batches:
+            feats, flens = extract_features(audio, lens, cfg.features, device=dev)
+            encoder_ms[int(audio.shape[1])] = device_ms(
+                torch, lambda: rec.model.encode(feats, flens), reps=3, rounds=3)
+    emit({"conformer_decode": {
+        "preset": "conformer", "ctc_weight": weight, "steps": steps,
+        "encoder_ms": encoder_ms,
         "decode_step_counts": want_counts, "pcm": pcm, "arena_bytes": arena_bytes,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
         "finite": all(bool(torch.isfinite(r.scores).all()) for r, _ in eager.values()),
@@ -3608,9 +3818,10 @@ def parallel_path(torch, dev):
 
 
 CHECKS = ("check_fbank", "check_beam_prune", "check_lineage", "check_cross_attention",
+          "check_relpos_attention",
           "check_flash", "check_ring_blocks", "check_adam", "check_int8_matmul",
           "check_int8_ffn")
-PHASES = CHECKS + ("graph_decode", "ctc_decode", "main_path", "export_path", "card_vs_cpu", "int8_path",
+PHASES = CHECKS + ("graph_decode", "ctc_decode", "conformer_decode", "main_path", "export_path", "card_vs_cpu", "int8_path",
                    "int8_card_vs_cpu", "train_path", "large_train_path",
                    "train_card_vs_cpu", "overfit_anchor", "manifest_path", "pipeline_path",
                    "drive_recipe", "parallel_path")
@@ -3659,7 +3870,8 @@ def main() -> int:
         t0 = time.perf_counter()
         graph_decode(torch, dev)
         emit({"phase_s": {"graph_decode": time.perf_counter() - t0}})
-    counts = {"serve": {}, "export": {}, "serve_int8": {}, "ctc": {}, "train": {}, "large": {},
+    counts = {"serve": {}, "export": {}, "serve_int8": {}, "ctc": {}, "conformer": {},
+              "train": {}, "large": {},
               "large_master": {},
               "large_trainer": {}, "librispeech": {}, "manifest": {}, "pipeline": {},
               "recipe": {}, "parallel": {}}
@@ -3668,6 +3880,13 @@ def main() -> int:
         rec, counts["ctc"] = ctc_decode(torch, dev)
         recs.append(rec)
         emit({"phase_s": {"ctc_decode": time.perf_counter() - t0}})
+    if "conformer_decode" in phases:
+        t0 = time.perf_counter()
+        rec, counts["conformer"] = conformer_decode(torch, dev,
+                                                    "check_relpos_attention" not in phases)
+        if rec is not None:
+            recs.append(rec)
+        emit({"phase_s": {"conformer_decode": time.perf_counter() - t0}})
     for path, int8 in (("serve", False), ("serve_int8", True)):
         name = "int8_path" if int8 else "main_path"
         if name in phases:

@@ -14,7 +14,9 @@ builds its layers one by one.
 The port adds fields of its own (``PORT_ONLY``), off by default: the CTC
 head of the hybrid CTC/attention model (``model.ctc_head``), the CTC share
 of the training loss (``train.ctc_weight``, ESPnet's ``mtlalpha``) and of
-the beam search's scores (``decode.ctc_weight``). ``jax_dict()`` is
+the beam search's scores (``decode.ctc_weight``), and the encoder's kind
+(``model.encoder``: the Speech-Transformer's, or ESPnet's Conformer with
+its depthwise convolution's kernel ``model.conv_kernel``). ``jax_dict()`` is
 ``to_dict()`` without them where they hold their defaults, and the hashes
 are taken over it, so a preset's hashes stay the JAX package's.
 """
@@ -111,6 +113,8 @@ class ModelConfig(_Replace):
     scan_layers: bool = False      # JAX-only; the port reads it in convert.py
     attention_bf16_weights: bool = True
     ctc_head: bool = False         # port only: a CTC head (Linear d_model -> V) on the encoder
+    encoder: str = "transformer"   # port only: transformer | conformer (models/conformer.py)
+    conv_kernel: int = 31          # port only: the Conformer's depthwise convolution kernel
 
     @property
     def head_dim(self) -> int:
@@ -275,6 +279,18 @@ class ExperimentConfig:
                 errs.append(f"{section}.ctc_weight {w} not in [0, 1]")
             elif w > 0.0 and not m.ctc_head:
                 errs.append(f"{section}.ctc_weight {w} needs model.ctc_head=True")
+        if m.encoder not in ("transformer", "conformer"):
+            errs.append(f"model.encoder {m.encoder!r} not in ('transformer', 'conformer')")
+        elif m.encoder == "conformer":
+            if m.conv_kernel < 1 or m.conv_kernel % 2 == 0:
+                errs.append(f"model.conv_kernel {m.conv_kernel} must be odd and positive "
+                            f"(the depthwise convolution keeps the frame count)")
+            if m.attention_impl == "ring":
+                errs.append("model.encoder='conformer' has no ring attention: its "
+                            "relative-position attention runs on one device")
+            if m.remat or not m.normalize_before:
+                errs.append("model.encoder='conformer' is the pre-LN block without "
+                            "remat (set model.remat=False, model.normalize_before=True)")
         if m.attention_impl == "ring" and m.attention_dropout_rate > 0.0:
             errs.append("attention_impl='ring' does not support attention "
                         "dropout (set model.attention_dropout_rate=0.0)")
@@ -287,7 +303,8 @@ class ExperimentConfig:
 
 
 # Fields the JAX package does not have, with their defaults.
-PORT_ONLY = {"model": {"ctc_head": False}, "train": {"ctc_weight": 0.0},
+PORT_ONLY = {"model": {"ctc_head": False, "encoder": "transformer", "conv_kernel": 31},
+             "train": {"ctc_weight": 0.0},
              "decode": {"ctc_weight": 0.0}}
 
 
@@ -338,7 +355,7 @@ def apply_overrides(cfg: ExperimentConfig, overrides: dict[str, Any]) -> Experim
 
 
 # ---------------------------------------------------------------------------
-# Presets — the same five as the JAX package.
+# Presets — the same five as the JAX package, and the port's own Conformer.
 # ---------------------------------------------------------------------------
 
 def tiny_config() -> ExperimentConfig:
@@ -399,6 +416,24 @@ def librispeech_config() -> ExperimentConfig:
     )
 
 
+def librispeech_conformer_config() -> ExperimentConfig:
+    """ESPnet's LibriSpeech Conformer with hybrid CTC/attention decoding
+    (``egs2/librispeech/asr1``, ``conf/tuning/train_asr_conformer*.yaml``;
+    Gulati et al., 2020; Guo et al., 2021): ``librispeech`` with 12
+    Conformer blocks (relative-position self-attention, a depthwise
+    convolution of kernel 31, macaron feed-forwards with Swish), 512
+    subsampling channels, attention dropout 0.1, a CTC head and CTC weight
+    0.3 in training and decoding. A port-only preset: the JAX package has
+    no Conformer."""
+    cfg = librispeech_config()
+    return cfg.replace(
+        name="librispeech_conformer",
+        model=cfg.model.replace(encoder="conformer", conv_kernel=31, subsample_channels=512,
+                                attention_dropout_rate=0.1, ctc_head=True),
+        train=cfg.train.replace(ctc_weight=0.3),
+        decode=cfg.decode.replace(ctc_weight=0.3))
+
+
 def sharded_config() -> ExperimentConfig:
     """d_model=2048 with tensor parallelism over 4 ranks and ring attention
     in the encoder: the port trains and decodes it on a mesh
@@ -426,11 +461,17 @@ PRESETS = {
     "sharded": sharded_config,
 }
 
+# The port's own presets, which the JAX package has no counterpart of.
+PORT_PRESETS = {
+    "librispeech_conformer": librispeech_conformer_config,
+}
+
 
 def get_config(name: str, **overrides: Any) -> ExperimentConfig:
-    if name not in PRESETS:
-        raise ValueError(f"unknown preset {name!r}; choose from {sorted(PRESETS)}")
-    cfg = PRESETS[name]()
+    presets = {**PRESETS, **PORT_PRESETS}
+    if name not in presets:
+        raise ValueError(f"unknown preset {name!r}; choose from {sorted(presets)}")
+    cfg = presets[name]()
     if overrides:
         cfg = apply_overrides(cfg, overrides)
     return cfg

@@ -77,6 +77,9 @@ SIGNATURES = {
     # q, k, v, lens, out, batch, beams, heads, frames, head_dim, strides[6]
     # (b, h, s of K, then of V), splits, is_bf16, stream
     "st_cross_attention_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LP, _I, _I, _P],
+    # q, k, v, p, u, vb, lens, out, strides[11] ((b, t, h) of q, k, v, then
+    # (r, h) of p), batch, frames, heads, head_dim, stream
+    "st_relpos_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _LP, _I, _I, _I, _I, _P],
     # x, wq, scale, y, m, k, n, ldx, rows, k_chunk, is_bf16, stream
     "st_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P],
     # x, w1q, s1, b1, w2q, s2, b2, y, partial, counters, m, k, ff, n, ldx,

@@ -1,7 +1,7 @@
 """The serving kernels as ``torch.library`` custom ops (namespace ``st_port``).
 
 ``torch.export`` and graph compilers cannot see into a ctypes call on
-``data_ptr``s, so the four kernels of the exported serving path are
+``data_ptr``s, so the serving kernels are
 registered here as operators with a fake implementation that gives their
 output shapes, dtypes and strides:
 
@@ -9,6 +9,7 @@ output shapes, dtypes and strides:
   st_port::lineage_attention       B-3, ``kernels/lineage_attention.py``
   st_port::flash_fwd               B-4, ``kernels/flash_attention.py``
   st_port::cross_attention_decode  the port's own, ``kernels/cross_attention.py``
+  st_port::relpos_attention        the port's own, ``kernels/relpos_attention.py``
 
 Each op's CUDA implementation is the hand-written kernel's wrapper (which
 counts its launches) and its CPU implementation the plain version; the
@@ -26,7 +27,7 @@ import torch
 from torch import Tensor
 
 from . import beam_prune, cross_attention as cross, flash_attention as flash
-from . import lineage_attention as lineage
+from . import lineage_attention as lineage, relpos_attention as relpos
 
 NAMESPACE = "st_port"
 
@@ -100,6 +101,27 @@ def _(q, k, v, mem_lens):
 @cross_attention_decode.register_fake
 def _(q, k, v, mem_lens):
     return q.new_empty(q.shape)
+
+
+# ------------------------------------ Conformer relative-position attention
+
+@torch.library.custom_op(f"{NAMESPACE}::relpos_attention", mutates_args=(), device_types="cpu")
+def relpos_attention(q: Tensor, k: Tensor, v: Tensor, p: Tensor, u: Tensor, vb: Tensor,
+                     lengths: Tensor) -> Tensor:
+    """[B, T, H, D] in v's dtype: q, k, v [B, T, H, D] with the position
+    rows p [2T - 1, H, D] and biases u, vb [H, D], keys < lengths[b] [B];
+    rows past a length zero."""
+    return relpos.relpos_attention_reference(q, k, v, p, u, vb, lengths).contiguous()
+
+
+@relpos_attention.register_kernel("cuda")
+def _(q, k, v, p, u, vb, lengths):
+    return relpos.relpos_attention_cuda(q, k, v, p, u, vb, lengths)
+
+
+@relpos_attention.register_fake
+def _(q, k, v, p, u, vb, lengths):
+    return v.new_empty(q.shape)
 
 
 # ---------------------------------------------------------------- B-4

@@ -13,7 +13,8 @@ at each replay (``credit_launches``), so the launch counts stay the
 kernels the port ran.
 
 The serving kernels (beam prune, lineage attention, decode
-cross-attention, the flash forward) are reached through their
+cross-attention, the flash forward, the Conformer's relative-position
+attention) are reached through their
 ``torch.library`` custom ops
 (``kernels/custom_ops.py``), whose CUDA and CPU implementations are that
 same pair, so that ``torch.export`` traces through them.
@@ -30,7 +31,7 @@ from . import beam_prune, cross_attention as cross, ctc_prefix, custom_ops
 from . import flash_attention as flash
 from . import fused_adam as adam
 from . import int8_ffn as ffn8, int8_matmul as mm8
-from . import lineage_attention as lineage, stft_mel
+from . import lineage_attention as lineage, relpos_attention as relpos, stft_mel
 
 _WRAPPERS = {
     "stft_mel": stft_mel.log_mel_cuda,
@@ -45,6 +46,7 @@ _WRAPPERS = {
     "int8_ffn": ffn8.int8_ffn_cuda,
     "ctc_prefix": ctc_prefix.ctc_prefix_cuda,
     "cross_attention_decode": cross.cross_attention_decode_cuda,
+    "relpos_attention": relpos.relpos_attention_cuda,
 }
 
 
@@ -83,6 +85,28 @@ def cross_attention_decode(q, k, v, mem_lens):
     beams an utterance against its cross K/V [B, H, S, D], over the frames
     before ``mem_lens`` [B] (int32 on the card). Returns [B·K, 1, H, D]."""
     return custom_ops.cross_attention_decode(q, k, v, mem_lens)
+
+
+def relpos_attention(q, k, v, p, u, vb, lengths, *, dropout_rate: float = 0.0,
+                     deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The Conformer's relative-position self-attention
+    (kernels/relpos_attention.py): q, k, v [B, T, H, D], the position rows
+    p [2T - 1, H, D], the biases u, vb [H, D] and the valid ``lengths``
+    [B]; returns [B, T, H, D], rows past a length zero. Where a gradient
+    will be taken, or attention dropout is active, the plain version with
+    torch autograd (on any device); otherwise the op
+    ``st_port::relpos_attention``: the kernel on the card (``lengths`` cast
+    to int32 there), the plain version on the CPU."""
+    grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v, p, u, vb))
+    if grad or (dropout_rate > 0.0 and not deterministic):
+        return relpos.relpos_attention_reference(
+            q, k, v, p, u, vb, lengths, dropout_rate=dropout_rate,
+            deterministic=deterministic, generator=generator)
+    if _on_cuda(q):
+        lengths = lengths.to(torch.int32)
+    return custom_ops.relpos_attention(q, k, v, p, u, vb, lengths)
 
 
 def ctc_prefix_scores(logp, state, last, cand, index, lens, *, beams: int,

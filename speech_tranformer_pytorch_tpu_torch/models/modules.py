@@ -311,14 +311,18 @@ class Int8Embedding(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Linear → ReLU → dropout → Linear; with both layers int8
-    (``Int8Linear``), one fused ``interface.int8_ffn`` launch. With a
-    ``mesh`` the rank holds d_ff/tp hidden columns (fc1 by rows, fc2 by
-    columns; fc1's bias whole, as the JAX rules keep it)."""
+    """Linear → activation → dropout → Linear; the activation is ReLU (the
+    Speech-Transformer's) or ``activation`` (the Conformer's Swish,
+    ``F.silu``). With both layers int8 (``Int8Linear``, ReLU only), one
+    fused ``interface.int8_ffn`` launch. With a ``mesh`` the rank holds
+    d_ff/tp hidden columns (fc1 by rows, fc2 by columns; fc1's bias whole,
+    as the JAX rules keep it)."""
 
-    def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0, mesh=None):
+    def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0, mesh=None,
+                 activation=F.relu):
         super().__init__()
         self.mesh = mesh
+        self.activation = activation
         hidden = d_ff // (1 if mesh is None else mesh.tp)
         self.fc1 = nn.Linear(d_model, hidden)
         self.fc2 = nn.Linear(hidden, d_model)
@@ -331,7 +335,7 @@ class FeedForward(nn.Module):
         int8 = [isinstance(fc, Int8Linear) for fc in (self.fc1, self.fc2)]
         if any(int8):
             return self._int8(x, int8)
-        h = dropout(F.relu(column_linear(self.fc1, x, self.mesh)), self.dropout_rate,
+        h = dropout(self.activation(column_linear(self.fc1, x, self.mesh)), self.dropout_rate,
                     deterministic=deterministic, generator=generator,
                     shard=dropout_shard(self.mesh, -1))
         return row_linear(self.fc2, h, self.mesh)
@@ -341,6 +345,8 @@ class FeedForward(nn.Module):
         dropout; biases enter the kernel in f32, the result is cast to the
         compute dtype."""
         fc1, fc2 = self.fc1, self.fc2
+        if self.activation is not F.relu:
+            raise ValueError("the int8 feed-forward kernel computes ReLU only")
         if not all(int8) or fc1.bias is None or fc2.bias is None:
             raise ValueError("the int8 feed-forward needs both layers int8 with "
                              "their scales and biases (ops.quantize.decode_model)")

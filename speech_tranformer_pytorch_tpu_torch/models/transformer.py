@@ -6,7 +6,11 @@ CTC/attention Transformer (Watanabe et al., 2017; ESPnet's LibriSpeech
 recipe): a CTC head, one Linear d_model -> V over the encoder output,
 whose blank is the pad id 0. ``ctc_log_probs`` gives its float32
 log-softmax; the train step weighs its loss in (``train.ctc_weight``) and
-the beam search its prefix scores (``decode.ctc_weight``)."""
+the beam search its prefix scores (``decode.ctc_weight``).
+
+``model.encoder`` (the port's own field) picks the encoder: the
+Speech-Transformer's (``models/encoder.py``) or ESPnet's Conformer
+(``models/conformer.py``); the decoder and the CTC head are the same."""
 
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..kernels.ctc_prefix import LOGZERO
 from ..ops import masks as mask_ops
+from .conformer import ConformerEncoder
 from .decoder import Cache, Decoder
 from .encoder import Encoder
 
@@ -34,6 +39,10 @@ class SpeechTransformer(nn.Module):
         same ``Conv2dSubsampling`` (see its docstring)."""
         super().__init__()
         if mesh is not None:
+            if cfg.encoder == "conformer":
+                raise ValueError("model.encoder='conformer' is single-device: its relative-"
+                                 "position attention and convolution have no tensor-"
+                                 "parallel form")
             tp = mesh.tp
             split = {"model.num_heads": cfg.num_heads, "model.d_ff": cfg.d_ff,
                      "model.d_model": cfg.d_model}
@@ -48,7 +57,8 @@ class SpeechTransformer(nn.Module):
                                  "has no tensor-parallel form")
         self.cfg = cfg
         self.mesh = mesh
-        self.encoder = Encoder(cfg, mesh)
+        self.encoder = (ConformerEncoder(cfg, mesh) if cfg.encoder == "conformer"
+                        else Encoder(cfg, mesh))
         self.decoder = Decoder(cfg, mesh)
         self.ctc = nn.Linear(cfg.d_model, cfg.vocab_size) if cfg.ctc_head else None
 
@@ -95,11 +105,12 @@ class SpeechTransformer(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "SpeechTransformer":
         """Seeded random weights: normal(0, 1/fan_in) kernels (LeCun), zero
-        biases, unit LayerNorm scales, normal(0, 1/d) embeddings. Draws on
-        ``generator``'s device; build on the CPU to share weights across
-        devices."""
+        biases, unit LayerNorm scales, normal(0, 1/d) embeddings; a
+        Conformer's BatchNorm at its defaults and its position biases drawn
+        (``ConformerEncoder.init_extra``). Draws on ``generator``'s device;
+        build on the CPU to share weights across devices."""
         for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d)):
+            if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 fan_in = m.weight[0].numel()
                 m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
                 if m.bias is not None:
@@ -110,4 +121,8 @@ class SpeechTransformer(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm1d):
+                m.reset_parameters()
+        if isinstance(self.encoder, ConformerEncoder):
+            self.encoder.init_extra(generator)
         return self

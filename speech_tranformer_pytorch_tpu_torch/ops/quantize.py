@@ -56,7 +56,11 @@ def quantize_params(params: StateDict, cfg: ModelConfig, *,
     """f32 ``state_dict`` -> ``(qparams, scales)``. ``qparams`` has every
     key of ``params``: int8 tensors (same shape) for the quantized leaves,
     the float leaf itself for the rest. ``scales`` maps each quantized key
-    to its f32 per-output-column vector [shape[0]]."""
+    to its f32 per-output-column vector [shape[0]]. The Conformer
+    (``model.encoder='conformer'``) has no int8 serving path."""
+    if cfg.encoder == "conformer":
+        raise ValueError("model.encoder='conformer' has no int8 serving path: turn "
+                         "decode.int8_weights off")
     qparams, scales = dict(params), {}
     for name, _, kind, shape, _ in _entries(cfg):
         w = params[name]

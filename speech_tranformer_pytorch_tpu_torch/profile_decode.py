@@ -1,11 +1,16 @@
 """Where the time of one served batch goes, on a CUDA card.
 
     python -m speech_tranformer_pytorch_tpu_torch.profile_decode [--int8]
+        [--preset librispeech_conformer] [--eager-prologue]
 
-Runs the smoke main path (``smoke_batch``: ``base`` preset, seeded random
-weights, 8 int16 utterances of 4-6 s, beam 5, max_len 100; with ``--int8``
-int8 weights and an int8 cross-K/V cache) once to warm
-up, once timed, then once under ``torch.profiler``. Prints one JSON line:
+Runs the smoke main path (``smoke_batch``: ``base`` preset, or
+``--preset``'s, seeded random weights, 8 int16 utterances of 4-6 s, beam 5,
+max_len 100; with ``--int8`` int8 weights and an int8 cross-K/V cache)
+once to warm up, once timed, then once under ``torch.profiler``. With
+``--eager-prologue`` the profiled call finds no graph of its shape, so its
+prologue (features, encoder, caches) runs eagerly and its spans show:
+``st.features``, ``st.encode`` and, for a Conformer, ``st.encode.relpos``
+and ``st.encode.conv``. Prints one JSON line:
 the wall time, the device's busy time (union of kernel intervals) and idle
 share, kernel launches per decode step, the kernels that take the most
 device time, for each of the program's spans (``st.*``,
@@ -51,12 +56,13 @@ def smoke_audio():
     return make_utterances(8, min_seconds=4.0, max_seconds=6.0, seed=0)
 
 
-def smoke_batch(device: DeviceLike = None, *, int8: bool = False) -> SmokeBatch:
-    """The main path's batch: the ``base`` preset with seeded random
-    weights (generator seed 0) and ``smoke_audio``, served by a
-    ``Recognizer`` on ``device`` (with ``int8``: int8 weights and int8
+def smoke_batch(device: DeviceLike = None, *, int8: bool = False,
+                preset: str = "base") -> SmokeBatch:
+    """The main path's batch: the ``base`` preset (or ``preset``) with
+    seeded random weights (generator seed 0) and ``smoke_audio``, served
+    by a ``Recognizer`` on ``device`` (with ``int8``: int8 weights and int8
     cross-K/V cache); decode it with ``DECODE``."""
-    cfg = get_config("base", **(INT8 if int8 else {}))
+    cfg = get_config(preset, **(INT8 if int8 else {}))
     params = SpeechTransformer(cfg.model).init_weights(
         torch.Generator().manual_seed(0)).state_dict()
     audio, lens = smoke_audio()
@@ -75,8 +81,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--int8", action="store_true",
                     help="int8 weights and int8 cross-K/V cache")
-    int8 = ap.parse_args().int8
-    batch = smoke_batch(int8=int8)
+    ap.add_argument("--preset", default="base")
+    ap.add_argument("--eager-prologue", action="store_true",
+                    help="profile a call whose prologue runs eagerly (its spans show)")
+    args = ap.parse_args()
+    int8 = args.int8
+    batch = smoke_batch(int8=int8, preset=args.preset)
     rec = batch.recognizer
     rec.decode_batch(batch.audio, batch.lens, **DECODE)
     torch.cuda.synchronize()
@@ -86,6 +96,10 @@ def main() -> None:
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
 
+    if args.eager_prologue:
+        from .decoding import beam_graph
+
+        beam_graph._GRAPHS.pop(rec.model, None)
     interface.reset_decode_step_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -102,7 +116,7 @@ def main() -> None:
     steps = rec.last_steps
     spans = span_stats(prof.profiler.kineto_results.events())
     print(json.dumps({"profile": {
-        "device": torch.cuda.get_device_name(0), "int8": int8,
+        "device": torch.cuda.get_device_name(0), "preset": args.preset, "int8": int8,
         "wall_s": wall_plain, "wall_s_profiled": wall_prof, "decode_steps": steps,
         "device_events": len(kernels),
         "launches_per_step": len(kernels) / max(steps, 1),

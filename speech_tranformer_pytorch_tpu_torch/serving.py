@@ -106,6 +106,9 @@ def export_recognizer(cfg, params: Dict[str, torch.Tensor], *, batch_size: int,
     from .device import resolve_device
     from .models import SpeechTransformer
 
+    if cfg.model.encoder == "conformer":
+        raise ValueError("model.encoder='conformer' cannot be exported: the Conformer is "
+                         "served by the Recognizer's graph-replayed beam search only")
     if cfg.decode.ctc_weight > 0.0:
         raise ValueError("decode.ctc_weight > 0 cannot be exported: the exported "
                          "decode loop has no CTC prefix scorer")
