@@ -527,9 +527,108 @@ def check_lineage(torch, dev):
                yardstick_note="gather of the selected K/V rows + scaled_dot_product_attention "
                               "(not the same function: no bf16 rounding of the weights)",
                shape=[b * 5, 100, 8, 64, 49],
-               sharded=recs[("sharded_beam5", 49)])
+               sharded=recs[("sharded_beam5", 49)], step=check_lineage_step(torch, dev))
     emit({"check": rec})
     return rec
+
+
+# The decode step's write-and-attend form (``lineage_attention_step_cuda``)
+# at every served row count, beam 5, H 8, D 64: 5 rows (`base.serve.b1`),
+# 40 (`base.serve.aishell-b8`), 80 (`librispeech.serve.ls-b16`) and 160
+# (`conformer.serve.ls-long-b32`), each at cache lengths L from its cell's
+# buckets (the calls' step budgets) and at indices 0, L // 2 and L - 1, in
+# bf16 (served) and f32. q, k_new and v_new are the unbind views of one
+# real qkv GEMM output [rows, 1, 3·H·D] (row stride 3·H·D), as the step
+# hands them. Held bit-equal to the route it replaces (the int64 index,
+# ``index_copy_`` of both rows, q made contiguous, the attend-only kernel)
+# in its output and both caches; the written rows bit-equal to k_new/v_new
+# and every other row untouched; within the tolerances above of the plain
+# version; and bit-equal on a second call. Timed in bf16 at each cell's
+# longest L, index L // 2, beside the replaced route's five kernels and
+# the attend-only kernel alone.
+LINEAGE_STEP_CELLS = (("base.serve.b1", 1, (6, 44)),
+                      ("base.serve.aishell-b8", 8, (6, 25, 44)),
+                      ("librispeech.serve.ls-b16", 16, (6, 48, 100)),
+                      ("conformer.serve.ls-long-b32", 32, (48, 69, 100)))
+
+
+def check_lineage_step(torch, dev):
+    from torch.nn import functional as F
+    from speech_tranformer_pytorch_tpu_torch.kernels import lineage_attention as la
+
+    k, h, d, width = 5, 8, 64, 512
+    g = torch.Generator().manual_seed(3)
+
+    def inputs(b, L, index, dtype):
+        rows = b * k
+        x = torch.randn(rows, 1, width, generator=g).to(dev, dtype)
+        w = (torch.randn(3 * h * d, width, generator=g) / width ** 0.5).to(dev, dtype)
+        q, kn, vn = F.linear(x, w).unflatten(-1, (3, h, d)).unbind(-3)
+        ck, cv = (torch.randn(rows, L, h, d, generator=g).to(dev, dtype) for _ in range(2))
+        lin = torch.randint(0, k, (b, k, L), generator=g, dtype=torch.int32)
+        lin[:, :, index:] = torch.arange(k, dtype=torch.int32)[None, :, None]
+        return q, kn, vn, ck, cv, lin.to(dev)
+
+    def replaced(q, kn, vn, ck, cv, lin, step, beams):
+        pos = step.reshape(1).long()
+        ck.index_copy_(1, pos, kn)
+        cv.index_copy_(1, pos, vn)
+        return la.lineage_attention_cuda(q, ck, cv, lin, step, beams)
+
+    failed, errs = [], {}
+    for cell, b, lengths in LINEAGE_STEP_CELLS:
+        for L in lengths:
+            for index in sorted({0, L // 2, L - 1}):
+                for dtype, atol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-6)):
+                    q, kn, vn, ck, cv, lin = inputs(b, L, index, dtype)
+                    step = torch.tensor(index, dtype=torch.int32, device=dev)
+                    runs = []
+                    for fn in (la.lineage_attention_step_cuda, la.lineage_attention_step_cuda,
+                               replaced):
+                        kk, vv = ck.clone(), cv.clone()
+                        runs.append((fn(q, kn, vn, kk, vv, lin, step, k), kk, vv))
+                    want = la.lineage_attention_step_reference(q, kn, vn, ck.clone(), cv.clone(),
+                                                               lin, step, k)
+                    torch.cuda.synchronize()
+                    (got, gk, gv), again, old = runs
+                    name = (f"lineage_step[{str(dtype)[6:]},{cell},{b * k}x{L},"
+                            f"index={index}]")
+                    others = torch.arange(L, device=dev) != index
+                    rec = {
+                        "replaced_route_bit_equal": all(torch.equal(x, y)
+                                                        for x, y in zip(runs[0], old)),
+                        "second_call_bit_equal": all(torch.equal(x, y)
+                                                     for x, y in zip(runs[0], again)),
+                        "rows_written": bool(torch.equal(gk[:, index], kn[:, 0])
+                                             and torch.equal(gv[:, index], vn[:, 0])),
+                        "others_untouched": bool(torch.equal(gk[:, others], ck[:, others])
+                                                 and torch.equal(gv[:, others], cv[:, others])),
+                        "max_abs_err": check_close(name, got, want, atol, 1e-5)}
+                    errs[(dtype, name)] = rec["max_abs_err"]
+                    emit({"check": {"name": name, **rec}})
+                    if not all(v for key, v in rec.items() if key != "max_abs_err"):
+                        failed.append(name)
+    if failed:
+        raise AssertionError(f"lineage_step: {failed}")
+    timed = {}
+    for cell, b, lengths in LINEAGE_STEP_CELLS:
+        L = lengths[-1]
+        index = L // 2
+        q, kn, vn, ck, cv, lin = inputs(b, L, index, torch.bfloat16)
+        qc = q.contiguous()
+        step = torch.tensor(index, dtype=torch.int32, device=dev)
+        t = dict(
+            ms=device_ms(torch, lambda: la.lineage_attention_step_cuda(
+                q, kn, vn, ck, cv, lin, step, k)),
+            replaced_ms=device_ms(torch, lambda: replaced(q, kn, vn, ck, cv, lin, step, k)),
+            attend_only_ms=device_ms(torch, lambda: la.lineage_attention_cuda(
+                qc, ck, cv, lin, step, k)))
+        timed[cell] = t
+        emit({"check": {"name": f"lineage_step_timing[{cell},{b * k}x{L}x{h}x{d},"
+                                f"index={index}]", **t}})
+    return {"max_abs_err": max(v for (dt, _), v in errs.items() if dt == torch.bfloat16),
+            "max_abs_err_f32": max(v for (dt, _), v in errs.items() if dt == torch.float32),
+            "cases": len(errs), "timed": timed}
 
 
 # Decode cross-attention (``kernels/cross_attention.py``) at the serving
@@ -1936,6 +2035,20 @@ def step_counts(**counts):
     return {**{kind: 0 for kind in interface.decode_step_counts()}, **counts}
 
 
+def row_writes_checked(cfg, steps: int, tag: str) -> dict:
+    """``interface.row_write_counts()`` since its last reset, which on the
+    card must be the lineage kernel's alone, one a decoder layer and step:
+    every step, captured, replayed or eager, writes its self K/V rows inside
+    the write-and-attend kernel, and none with ``index_copy_``."""
+    from speech_tranformer_pytorch_tpu_torch.kernels import interface
+
+    got = interface.row_write_counts()
+    want = {"kernel": cfg.model.num_decoder_layers * steps, "index_copy": 0}
+    if got != want:
+        raise AssertionError(f"{tag}: self K/V row writes {got}, expected {want}")
+    return got
+
+
 def _prologue_bits(torch, dev, rec, batches, decode: dict) -> dict:
     """Each batch's prologue on a new arena (``beam_graph.StepGraphs.prologue``),
     run eagerly at its first call, then, after the call's search has
@@ -2004,7 +2117,8 @@ def _pcm_graph_passes(torch, dev, rec, cfg, batches, decode: dict, eager: dict,
 
     def run_pass():
         interface.reset_decode_step_counts()
-        walls, differ = [], []
+        interface.reset_row_write_counts()
+        walls, differ, steps_run = [], [], 0
         for i, (audio, lens, max_len) in enumerate(batches):
             interface.reset_launch_counts()
             t0 = time.perf_counter()
@@ -2013,6 +2127,7 @@ def _pcm_graph_passes(torch, dev, rec, cfg, batches, decode: dict, eager: dict,
                                              ctc_weight=rec.ctc_weight, **decode)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+            steps_run += r.steps
             counts = interface.launch_counts()
             want = expected_serve_launches(cfg, r.steps, int8, decode["beam_size"])
             if counts != want:
@@ -2026,6 +2141,7 @@ def _pcm_graph_passes(torch, dev, rec, cfg, batches, decode: dict, eager: dict,
                                "score_diff": float((r.scores - e.scores).abs().max())})
         if differ:
             raise AssertionError(f"PCM graph and eager decodes differ: {differ}")
+        row_writes_checked(cfg, steps_run, "graph_beam_decode")
         return walls, interface.decode_step_counts()
 
     first_s, first_counts = run_pass()
@@ -2087,7 +2203,7 @@ def graph_decode(torch, dev):
         built = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
 
-        encoded, redrawn = {}, []
+        encoded, redrawn, row_writes = {}, [], []
 
         def serve(fn, i):
             """One call of ``fn`` on batch ``i`` after its features and
@@ -2117,7 +2233,10 @@ def graph_decode(torch, dev):
 
         def run_pass(fn, order):
             interface.reset_decode_step_counts()
+            interface.reset_row_write_counts()
             out = {i: serve(fn, i) for i in order}
+            row_writes.append(row_writes_checked(
+                cfg, sum(r.steps for r, _ in out.values()), fn.__name__))
             return out, interface.decode_step_counts()
 
         shapes = range(len(batches))
@@ -2156,6 +2275,7 @@ def graph_decode(torch, dev):
                "serve_peak_bytes": serve_peak,
                "arena_bytes": arena_bytes, "steps": steps,
                "widest_score_diff": score_diff, "decode_step_counts": want_counts,
+               "row_writes": row_writes,
                "shapes": [{"samples": int(batches[i][0].shape[1]), "max_len": batches[i][2],
                            "steps": eager[i][0].steps, "eager_s": eager[i][1],
                            "first_s": first[i][1], "replayed_s": replayed[i][1]}
@@ -2291,6 +2411,7 @@ def ctc_decode(torch, dev):
     del model
     batches = _mix_batches(torch, cfg, CTC_BUCKETS, CTC_SHAPE[0], CTC_RATIO)
     encoded, total = {}, {k: 0 for k in interface.launch_counts()}
+    row_writes = []
 
     def serve(fn, i):
         audio, lens, max_len = batches[i]
@@ -2314,7 +2435,10 @@ def ctc_decode(torch, dev):
 
     def run_pass(fn):
         interface.reset_decode_step_counts()
+        interface.reset_row_write_counts()
         out = {i: serve(fn, i) for i in range(len(batches))}
+        row_writes.append(row_writes_checked(
+            cfg, sum(r.steps for r, _ in out.values()), fn.__name__))
         return out, interface.decode_step_counts()
 
     first, first_counts = run_pass(beam_graph.graph_beam_search)
@@ -2345,7 +2469,8 @@ def ctc_decode(torch, dev):
                             eager, False)
     emit({"ctc_decode": {
         "preset": "librispeech", "ctc_weight": weight, "steps": steps,
-        "decode_step_counts": want_counts, "pcm": pcm, "arena_bytes": arena_bytes,
+        "decode_step_counts": want_counts, "row_writes": row_writes, "pcm": pcm,
+        "arena_bytes": arena_bytes,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
         "finite": all(bool(torch.isfinite(r.scores).all()) for r, _ in eager.values()),
         "shapes": [{"samples": int(batches[i][0].shape[1]), "max_len": batches[i][2],
@@ -2491,6 +2616,7 @@ def conformer_decode(torch, dev, check_kernel: bool = True):
     torch.cuda.reset_peak_memory_stats(dev)
     batches = _mix_batches(torch, cfg, CONFORMER_BUCKETS, CONFORMER_BATCH, CTC_RATIO)
     encoded, total = {}, {k: 0 for k in interface.launch_counts()}
+    row_writes = []
 
     def serve(fn, i):
         audio, lens, max_len = batches[i]
@@ -2514,7 +2640,10 @@ def conformer_decode(torch, dev, check_kernel: bool = True):
 
     def run_pass(fn):
         interface.reset_decode_step_counts()
+        interface.reset_row_write_counts()
         out = {i: serve(fn, i) for i in range(len(batches))}
+        row_writes.append(row_writes_checked(
+            cfg, sum(r.steps for r, _ in out.values()), fn.__name__))
         return out, interface.decode_step_counts()
 
     first, first_counts = run_pass(beam_graph.graph_beam_search)
@@ -2552,7 +2681,8 @@ def conformer_decode(torch, dev, check_kernel: bool = True):
     emit({"conformer_decode": {
         "preset": "conformer", "ctc_weight": weight, "steps": steps,
         "encoder_ms": encoder_ms,
-        "decode_step_counts": want_counts, "pcm": pcm, "arena_bytes": arena_bytes,
+        "decode_step_counts": want_counts, "row_writes": row_writes, "pcm": pcm,
+        "arena_bytes": arena_bytes,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
         "finite": all(bool(torch.isfinite(r.scores).all()) for r, _ in eager.values()),
         "shapes": [{"samples": int(batches[i][0].shape[1]), "max_len": batches[i][2],

@@ -9,11 +9,12 @@ the host spends about twenty times the device time they cause on
 launching them; a CUDA graph launches them all at once. What is captured is
 ``beam.beam_step``, the eager search's own step function, run with its
 index a 0-d int32 tensor on the card and its state in static buffers that
-it updates in place: the self K/V cache is written at the index
-(``index_copy_``), the rest of the carry is copied back at the end of the
-step, the early-stop test is computed into a flag on the card and the
-index is incremented. So one replay advances the search by one step, and
-every kernel in it is the one the eager step launches.
+it updates in place: the self K/V cache is written at the index (by the
+lineage kernel, ``interface.lineage_attention_step``), the rest of the
+carry is copied back at the end of the step, the early-stop test is
+computed into a flag on the card and the index is incremented. So one
+replay advances the search by one step, and every kernel in it is the one
+the eager step launches.
 
 A served call's prologue is its work before the first step: the features
 (``data/features.extract_features``), the encoder (``beam.encode_on``),
@@ -61,7 +62,8 @@ the arena at every call (nothing is captured there), which is how the
 tests hold it to ``eager_beam_search`` and to the Recognizer's eager route.
 
 Launch counts (``kernels/interface.launch_counts``) stay the kernels the
-port ran: a capture's launches are taken back, and every replay credits
+port ran, and row-write counts (``interface.row_write_counts``) the self
+K/V rows it wrote: a capture's are taken back, and every replay credits
 the captured graph's. ``interface.decode_step_counts`` counts the step
 captures, replays and eager steps, and the prologues captured, replayed
 and run eagerly.
@@ -92,14 +94,17 @@ Spec = Dict[str, Tuple[Tuple[int, ...], Tuple[int, ...], torch.dtype]]
 
 @dataclasses.dataclass
 class _Graph:
-    """A captured CUDA graph and the launches its capture took back."""
+    """A captured CUDA graph and the launches and row writes its capture
+    took back."""
     graph: torch.cuda.CUDAGraph
     launches: Dict[str, int]
+    row_writes: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def replay(self) -> None:
-        """One replay, its launches credited."""
+        """One replay, its launches and row writes credited."""
         self.graph.replay()
         interface.credit_launches(self.launches)
+        interface.credit_row_writes(self.row_writes)
 
 
 @dataclasses.dataclass
@@ -224,12 +229,12 @@ class StepGraphs:
 
     def _capture(self, fn: Callable[[], object]) -> _Graph:
         """Capture ``fn`` on a side stream into the shared pool; its
-        launches are taken back and kept for the replays."""
+        launches and row writes are taken back and kept for the replays."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
-        before = interface.launch_counts()
+        before, rows_before = interface.launch_counts(), interface.row_write_counts()
         graph = torch.cuda.CUDAGraph()
         with named_scope("st.decode.capture"):
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -249,7 +254,11 @@ class StepGraphs:
         launched = {name: n - before[name]
                     for name, n in interface.launch_counts().items() if n != before[name]}
         interface.credit_launches(launched, -1)
-        return _Graph(graph, launched)
+        rows = {route: n - rows_before[route]
+                for route, n in interface.row_write_counts().items()
+                if n != rows_before[route]}
+        interface.credit_row_writes(rows, -1)
+        return _Graph(graph, launched, rows)
 
     def _start(self, model: SpeechTransformer, memory: torch.Tensor, mem_lens: torch.Tensor,
                *, beam_size: int, max_len: int, alpha: float, int8_kv: bool,

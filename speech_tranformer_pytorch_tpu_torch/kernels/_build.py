@@ -53,9 +53,11 @@ SIGNATURES = {
     # logits, alive, row_vals, row_idx, vals, idx, batch, beams, vocab, k2,
     # pad_id, sos_id, stream
     "st_beam_prune_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, lineage, out, batch, beams, max_len, heads, head_dim,
+    # q, q_stride, k_new, k_stride, v_new, v_stride (both null: attend
+    # only), k, v, lineage, out, batch, beams, max_len, heads, head_dim,
     # index (a device int32), is_bf16, stream
-    "st_lineage_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "st_lineage_attention": [_P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _P, _I, _P],
     # q, k, v, o, lse, kv_len, strides[24], batch, heads, tq, tk, head_dim,
     # causal, is_bf16, vec, stream
     "st_flash_fwd": [_P, _P, _P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I, _I, _I, _P],

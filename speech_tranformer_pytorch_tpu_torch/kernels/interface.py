@@ -7,17 +7,23 @@ fails to build or launch raises. Each kernel wrapper counts its launches;
 Beside them ``decode_step_counts`` counts how decode steps were issued:
 CUDA graphs captured and replayed (``decoding/beam_graph.py``), and steps
 run eagerly (``decoding/beam.decode_loop``), and likewise how each served
-call's prologue (features, encoder, caches) ran on the graph path. A
-captured graph's launches are taken back after its capture and credited
-at each replay (``credit_launches``), so the launch counts stay the
-kernels the port ran.
+call's prologue (features, encoder, caches) ran on the graph path, and
+``row_write_counts`` counts the decode step's self-K/V row writes (one a
+layer and step) by route: ``kernel``, inside the lineage kernel's
+write-and-attend form, or ``index_copy``, the plain writes of the CPU and
+of ``use_lineage=False``. A captured graph's launches and row writes are
+taken back after its capture and credited at each replay
+(``credit_launches``, ``credit_row_writes``), so the counts stay the work
+the port ran.
 
 The serving kernels (beam prune, lineage attention, decode
 cross-attention, the flash forward, the Conformer's relative-position
 attention) are reached through their
 ``torch.library`` custom ops
 (``kernels/custom_ops.py``), whose CUDA and CPU implementations are that
-same pair, so that ``torch.export`` traces through them.
+same pair, so that ``torch.export`` traces through them. The decode step's
+write-and-attend lineage call (``lineage_attention_step``) writes the cache
+and is called directly; an exported step takes the attend-only op.
 """
 
 from __future__ import annotations
@@ -77,6 +83,27 @@ def lineage_attention(q_new, self_k, self_v, lineage_table, index, beam_width):
     ``index`` is the step's 0-d int32 tensor on the cache's device."""
     return custom_ops.lineage_attention(q_new, self_k, self_v, lineage_table, index,
                                         int(beam_width))
+
+
+def lineage_attention_step(q_new, k_new, v_new, self_k, self_v, lineage_table, index,
+                           beam_width):
+    """The decode step's self-attention with its own K/V row write
+    (kernels/lineage_attention.py, write-and-attend): k_new and v_new
+    [B·K, 1, H, D] are written into the unpermuted cache self_k/self_v at
+    ``index`` (a 0-d int32 tensor on the cache's device), then q_new
+    attends through the lineage table. A CUDA tensor goes to the kernel,
+    which writes the rows itself and reads q, k_new and v_new in place
+    (any row stride); a CPU tensor to the plain version (``index_copy_``,
+    then the plain attention). Counts one row write of its route. Not an
+    op: it writes the cache, which ``torch.export``'s traced loop may not
+    (that loop takes ``lineage_attention`` with functional writes)."""
+    if _on_cuda(self_k):
+        count_row_writes("kernel")
+        return lineage.lineage_attention_step_cuda(q_new, k_new, v_new, self_k, self_v,
+                                                   lineage_table, index, int(beam_width))
+    count_row_writes("index_copy")
+    return lineage.lineage_attention_step_reference(q_new, k_new, v_new, self_k, self_v,
+                                                    lineage_table, index, int(beam_width))
 
 
 def cross_attention_decode(q, k, v, mem_lens):
@@ -259,6 +286,31 @@ def credit_launches(counts: Dict[str, int], times: int = 1) -> None:
     launch counts; a negative ``times`` takes them back."""
     for name, n in counts.items():
         _WRAPPERS[name].launches += n * times
+
+
+_ROW_WRITES = {"kernel": 0, "index_copy": 0}
+
+
+def count_row_writes(route: str, n: int = 1) -> None:
+    """Count ``n`` self-K/V row writes of a decode step (one a layer and
+    step, both caches) by ``route``: "kernel" or "index_copy"."""
+    _ROW_WRITES[route] += n
+
+
+def row_write_counts() -> Dict[str, int]:
+    return dict(_ROW_WRITES)
+
+
+def reset_row_write_counts() -> None:
+    for route in _ROW_WRITES:
+        _ROW_WRITES[route] = 0
+
+
+def credit_row_writes(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``counts`` (route -> row writes) ``times`` over, as
+    ``credit_launches`` does for launches."""
+    for route, n in counts.items():
+        count_row_writes(route, n * times)
 
 
 _DECODE_STEPS = {"captures": 0, "replays": 0, "eager_steps": 0,

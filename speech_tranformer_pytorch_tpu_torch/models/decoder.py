@@ -15,9 +15,10 @@ The step index is a 0-d int32 tensor on the cache's device at every call.
 For int8 serving (``ops/quantize.decode_model``) ``Decoder.use_int8`` swaps
 the dense layers for ``Int8Linear`` and the embedding for ``Int8Embedding``.
 By default the beam search never reorders the self cache: self-attention
-reads it through the lineage table (``kernels/interface.lineage_attention``);
-with ``use_lineage=False`` it gathers the cache by beam and attends in
-plain PyTorch.
+reads it through the lineage table, and the same call writes the step's
+row (``kernels/interface.lineage_attention_step``); with
+``use_lineage=False`` it gathers the cache by beam and attends in plain
+PyTorch.
 With ``model.remat`` each teacher-forced layer runs under
 ``ops/remat.remat_module`` while gradients are taken (JAX
 ``decoder.py:268-272``).
@@ -122,20 +123,32 @@ class DecoderLayer(nn.Module):
         ``cache`` in place (saves a copy of the cache per step), or, while
         ``torch.export`` traces (a step inside a ``while_loop``, which may
         not mutate its carry), puts new self K/V tensors in ``cache``.
-        Self-attention reads the unpermuted cache through ``lineage``, or,
-        with ``lineage=None`` (beam search's ``use_lineage=False``, whose
-        cache is gathered by beam every step), attends over the cache
-        positions <= ``index`` in plain PyTorch, as JAX's XLA path does."""
+        Self-attention reads the unpermuted cache through ``lineage``: off
+        the export path one call (``interface.lineage_attention_step``)
+        writes the rows and attends, taking the projection's views as they
+        are; while exporting, functional ``index_copy`` and the
+        ``st_port::lineage_attention`` op. With ``lineage=None`` (beam
+        search's ``use_lineage=False``, whose cache is gathered by beam
+        every step) it writes with ``index_copy_`` and attends over the
+        cache positions <= ``index`` in plain PyTorch, as JAX's XLA path
+        does."""
 
         def self_attend(h):
             q_new, k_new, v_new = self.self_attn.project_qkv(h)   # [B·K,1,H,D]
+            exporting = torch.compiler.is_exporting()
+            if lineage is not None and not exporting:   # the kernel writes the rows
+                out = interface.lineage_attention_step(
+                    q_new, k_new, v_new, cache["self_k"], cache["self_v"], lineage,
+                    index, beam_width)
+                return self.self_attn.project_out(out)
             pos = index.reshape(1).long()
-            if torch.compiler.is_exporting():   # a traced loop may not write its carry
+            if exporting:   # a traced loop may not write its carry
                 cache["self_k"] = cache["self_k"].index_copy(1, pos, k_new)
                 cache["self_v"] = cache["self_v"].index_copy(1, pos, v_new)
             else:
                 cache["self_k"].index_copy_(1, pos, k_new)
                 cache["self_v"].index_copy_(1, pos, v_new)
+                interface.count_row_writes("index_copy")
             if lineage is None:   # a beam-gathered cache: positions <= index
                 pos_ok = torch.arange(cache["self_k"].shape[1], device=h.device) <= index
                 out = dot_product_attention(q_new, cache["self_k"], cache["self_v"],
@@ -284,7 +297,7 @@ class Decoder(nn.Module):
             raise ValueError(f"a decode step index must be a 0-d int32 tensor on "
                              f"{device}, got {index!r}")
         x = self._embed_scaled(tokens[:, None])                # [B·K,1,d]
-        row = self.pos_enc.pe.index_select(0, index.reshape(1).long())
+        row = self.pos_enc.pe.index_select(0, index.reshape(1))
         x = x + row[None].to(x.dtype)
         lens = mem_lens.to(torch.int32)   # what the cross-attention kernel reads
         for i, layer in enumerate(self.layers):

@@ -18,7 +18,9 @@ device time, for each of the program's spans (``st.*``,
 step and the device time its launches caused, and how the profiled call's
 decode steps were issued (``kernels/interface.decode_step_counts``: graph
 replays, captures, eager steps, and the call prologues replayed, captured
-and run eagerly). ``chip_smoke.py`` serves
+and run eagerly), and how its self K/V rows were written
+(``interface.row_write_counts``: inside the lineage kernel, or by
+``index_copy_``; one a decoder layer and step). ``chip_smoke.py`` serves
 the same batch through ``smoke_batch``, so the trace describes the path
 it measures.
 """
@@ -101,6 +103,7 @@ def main() -> None:
 
         beam_graph._GRAPHS.pop(rec.model, None)
     interface.reset_decode_step_counts()
+    interface.reset_row_write_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rec.decode_batch(batch.audio, batch.lens, **DECODE)
@@ -128,7 +131,8 @@ def main() -> None:
                       "launches_per_step": v.launches / max(steps, 1),
                       "device_ms": v.device_s * 1e3}
                   for n, v in sorted(spans.items())},
-        "decode_step_counts": interface.decode_step_counts()}}), flush=True)
+        "decode_step_counts": interface.decode_step_counts(),
+        "row_writes": interface.row_write_counts()}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -7,12 +7,17 @@ larger, a smaller and the larger shape again with nothing of an earlier
 call left in the next, and the routing: only a model on a card with the
 lineage table, no mesh and nothing being exported replays graphs; the
 CPU, ``use_lineage=False``, greedy decoding and an exported program run
-eagerly and replay nothing (``interface.decode_step_counts``). The
+eagerly and replay nothing (``interface.decode_step_counts``), and each
+counts its self K/V row writes as ``index_copy`` ones
+(``interface.row_write_counts``; a replay credits what its capture took
+back). The
 finishing cases shift the decoder's final LayerNorm bias towards the
 <eos> embedding row (the output projection is tied), so that every beam
 finishes, and decode at alpha 0, where the early stop then ends the
 search at 4-7 of its 10 steps; with random weights and alpha 1 it runs
 them all."""
+
+from types import SimpleNamespace
 
 import pytest
 
@@ -168,6 +173,27 @@ def test_eager_paths_count_eager_steps_and_no_replay(served, path):
                                               "eager_steps": steps,
                                               "prologue_captures": 0, "prologue_replays": 0,
                                               "prologue_eager": 0}
+
+
+@pytest.mark.parametrize("path", ["recognizer_cpu", "gathered_cache", "greedy"])
+def test_eager_paths_count_their_row_writes_as_index_copy(served, path):
+    # On the CPU every route writes the self K/V rows with index_copy_: one
+    # write a decoder layer and step; the kernel route is the card's alone.
+    layers = served[0].model.num_decoder_layers
+    interface.reset_row_write_counts()
+    steps = _decode(served, path)
+    assert interface.row_write_counts() == {"kernel": 0, "index_copy": layers * steps}
+
+
+def test_a_replay_credits_the_row_writes_its_capture_took_back():
+    before = interface.row_write_counts()
+    interface.credit_row_writes({"kernel": 6}, -1)    # what a capture takes back
+    graph = beam_graph._Graph(SimpleNamespace(replay=lambda: None), {}, {"kernel": 6})
+    for _ in range(3):
+        graph.replay()
+    assert interface.row_write_counts() == {**before, "kernel": before["kernel"] + 12}
+    interface.credit_row_writes({"kernel": 6}, -2)
+    assert interface.row_write_counts() == before
 
 
 def test_exported_program_captures_and_replays_nothing(served):

@@ -5,7 +5,11 @@ kernels' wrappers refuse it (``kernels/_build.index_ptr``); the eager
 decode loop of beam search and of greedy search hands its step such an
 index at every step; and the decode cache holds only each layer's
 tensors. A card cache is stood in for by fake tensors on ``cuda``, which
-the refusal reads no data of."""
+the refusal reads no data of. The step's self-attention writes its K/V
+row and attends in one call (``interface.lineage_attention_step``): over
+several steps its logits and cache equal the route it replaced (an int64
+index, ``index_copy_`` and the attend-only op) exactly, and while
+``torch.export`` traces the step writes functional copies instead."""
 
 import pytest
 
@@ -15,7 +19,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
 from speech_tranformer_pytorch_tpu_torch.config import get_config  # noqa: E402
 from speech_tranformer_pytorch_tpu_torch.decoding import beam_search, greedy_search  # noqa: E402
-from speech_tranformer_pytorch_tpu_torch.kernels import _build  # noqa: E402
+from speech_tranformer_pytorch_tpu_torch.kernels import _build, interface  # noqa: E402
 from speech_tranformer_pytorch_tpu_torch.models import SpeechTransformer  # noqa: E402
 
 BEAM, MAX_LEN = 3, 6
@@ -109,3 +113,70 @@ def test_init_cache_holds_only_the_layers(model, int8_kv):
     scales = {"cross_k_scale", "cross_v_scale"} if int8_kv else set()
     for layer in cache.values():
         assert set(layer) == {"self_k", "self_v", "cross_k", "cross_v"} | scales
+
+
+def _parent_step(q_new, k_new, v_new, self_k, self_v, lineage, index, beam_width):
+    """The step's self-attention as it was before the kernel wrote the rows:
+    an int64 index, two ``index_copy_`` writes, then the attend-only op."""
+    pos = index.reshape(1).long()
+    self_k.index_copy_(1, pos, k_new)
+    self_v.index_copy_(1, pos, v_new)
+    return interface.lineage_attention(q_new, self_k, self_v, lineage, index, beam_width)
+
+
+def _run_steps(model, beam, steps=5):
+    """(logits of each step, the cache after them) of ``steps`` decode
+    steps with a lineage table whose columns < i hold drawn parents."""
+    memory, mem_lens = _memory(model)
+    g = torch.Generator().manual_seed(4)
+    cache = model.init_cache(memory, MAX_LEN, beam)
+    rows = memory.shape[0] * beam
+    lineage = torch.arange(beam, **I32)[None, :, None].expand(
+        memory.shape[0], beam, MAX_LEN).contiguous()
+    logits = []
+    for i in range(steps):
+        lineage[:, :, :i] = torch.randint(0, beam, (memory.shape[0], beam, i),
+                                          generator=g, **I32)
+        tokens = torch.randint(3, 20, (rows,), generator=g, **I32)
+        with torch.no_grad():
+            out, cache = model.decode_step(tokens, torch.tensor(i, **I32), cache,
+                                           mem_lens, beam, lineage)
+        logits.append(out)
+    return logits, cache
+
+
+@pytest.mark.parametrize("beam", [1, BEAM])
+def test_decode_steps_equal_the_index_copy_route(model, monkeypatch, beam):
+    got_logits, got_cache = _run_steps(model, beam)
+    before = interface.row_write_counts()
+    monkeypatch.setattr(interface, "lineage_attention_step", _parent_step)
+    want_logits, want_cache = _run_steps(model, beam)
+    assert interface.row_write_counts() == before   # the stand-in counts nothing
+    for got, want in zip(got_logits, want_logits):
+        assert torch.equal(got, want)
+    for name, layer in want_cache.items():
+        for key, t in layer.items():
+            assert torch.equal(got_cache[name][key], t), (name, key)
+
+
+def test_export_route_writes_functional_index_copy(model, monkeypatch):
+    memory, mem_lens = _memory(model, batch=1)
+    cache = model.init_cache(memory, MAX_LEN, BEAM)
+    held = {n: (layer["self_k"], layer["self_v"]) for n, layer in cache.items()}
+    monkeypatch.setattr(torch.compiler, "is_exporting", lambda: True)
+
+    def refuse(*args):
+        raise AssertionError("the export route wrote the cache in place")
+
+    monkeypatch.setattr(interface, "lineage_attention_step", refuse)
+    before = interface.row_write_counts()
+    lineage = torch.arange(BEAM, **I32)[None, :, None].expand(1, BEAM, MAX_LEN)
+    with torch.no_grad():
+        _, out = model.decode_step(torch.ones(BEAM, **I32), torch.tensor(2, **I32), cache,
+                                   mem_lens, BEAM, lineage)
+    assert interface.row_write_counts() == before
+    for name, (k, v) in held.items():
+        assert not k.any() and not v.any()          # the carry is left as it was
+        new_k = out[name]["self_k"]
+        assert new_k is not k and new_k[:, 2].any()
+        assert not new_k[:, :2].any() and not new_k[:, 3:].any()

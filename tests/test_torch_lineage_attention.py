@@ -3,7 +3,11 @@
 tests/test_lineage_attention_kernel.py: float32 at 2e-6 (accumulation
 order only) and a bfloat16 cache at 2e-2 (weights rounded to bf16 before
 the AV product). The port's CUDA kernel is held against the same plain
-version on the card by chip_smoke.py."""
+version on the card by chip_smoke.py. The decode step's write-and-attend
+form (``interface.lineage_attention_step``): its plain version against
+``index_copy_`` and the plain attention, bit for bit, on the fused qkv
+projection's strided views and on separate tensors, and what its kernel
+wrapper refuses."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +19,7 @@ from speech_tranformer_pytorch_tpu.kernels.lineage_attention import (  # noqa: E
     lineage_attention, lineage_attention_reference as jax_reference)
 from speech_tranformer_pytorch_tpu_torch.kernels import interface  # noqa: E402
 from speech_tranformer_pytorch_tpu_torch.kernels.lineage_attention import (  # noqa: E402
-    lineage_attention_cuda, lineage_attention_reference)
+    lineage_attention_cuda, lineage_attention_reference, lineage_attention_step_cuda)
 
 
 def _inputs(seed, b, k, L, h, d, index, lineage=None):
@@ -89,3 +93,77 @@ def test_kernel_wrapper_refuses_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA"):
         lineage_attention_cuda(*(torch.from_numpy(x) for x in (q, ck, cv, lin)),
                                torch.tensor(3, dtype=torch.int32), 2)
+
+
+# The write-and-attend form (the decode step's): q, k_new and v_new come as
+# the fused qkv projection's strided views or as separate tensors; the plain
+# version is index_copy_ of both rows, then the plain attention.
+STEP_L, STEP_B, STEP_H, STEP_D = 12, 2, 2, 16
+
+
+def _step_inputs(seed, k, index, layout, dtype):
+    g = torch.Generator().manual_seed(seed)
+    bk, h, d = STEP_B * k, STEP_H, STEP_D
+    if layout == "fused_qkv_views":   # unbind views of one [B·K, 1, 3·H·D] output
+        qkv = torch.randn(bk, 1, 3 * h * d, generator=g).to(dtype)
+        q, kn, vn = qkv.unflatten(-1, (3, h, d)).unbind(-3)
+        assert q.stride(0) == 3 * h * d and not q.is_contiguous()
+    else:
+        q, kn, vn = (torch.randn(bk, 1, h, d, generator=g).to(dtype) for _ in range(3))
+    ck, cv = (torch.randn(bk, STEP_L, h, d, generator=g).to(dtype) for _ in range(2))
+    lin = torch.randint(0, k, (STEP_B, k, STEP_L), generator=g, dtype=torch.int32)
+    lin[:, :, index:] = torch.arange(k, dtype=torch.int32)[None, :, None]
+    return q, kn, vn, ck, cv, lin
+
+
+@pytest.mark.parametrize("index", [0, 5, STEP_L - 1])
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["fused_qkv_views", "separate_contiguous"])
+def test_step_plain_version_writes_the_rows_then_attends(layout, dtype, k, index):
+    q, kn, vn, ck, cv, lin = _step_inputs(7, k, index, layout, getattr(torch, dtype))
+    step = torch.tensor(index, dtype=torch.int32)
+    want_k, want_v = ck.clone(), cv.clone()
+    pos = torch.tensor([index])
+    want_k.index_copy_(1, pos, kn)
+    want_v.index_copy_(1, pos, vn)
+    want = lineage_attention_reference(q, want_k, want_v, lin, step, k)
+    got_k, got_v = ck.clone(), cv.clone()
+    before = interface.row_write_counts()
+    got = interface.lineage_attention_step(q, kn, vn, got_k, got_v, lin, step, k)
+    after = interface.row_write_counts()
+    assert after == {**before, "index_copy": before["index_copy"] + 1}
+    assert got.is_contiguous() and got.dtype == q.dtype
+    assert torch.equal(got, want)
+    assert torch.equal(got_k, want_k) and torch.equal(got_v, want_v)
+    # Row (lane, index) holds the new rows; every other row is untouched.
+    assert torch.equal(got_k[:, index], kn[:, 0]) and torch.equal(got_v[:, index], vn[:, 0])
+    others = torch.arange(STEP_L) != index
+    assert torch.equal(got_k[:, others], ck[:, others])
+    assert torch.equal(got_v[:, others], cv[:, others])
+
+
+def _refusal_cases():
+    def wrong_k_shape(a):
+        a["k_new"] = a["k_new"][:, :, :1]
+    def wrong_v_dtype(a):
+        a["v_new"] = a["v_new"].double()
+    def heads_not_d_apart(a):
+        a["q_new"] = a["q_new"].transpose(2, 3).contiguous().transpose(2, 3)
+    def cpu_tensors(a):
+        pass
+    return [("wrong_k_new_shape", wrong_k_shape, "k_new"),
+            ("wrong_v_new_dtype", wrong_v_dtype, "v_new"),
+            ("q_heads_not_d_apart", heads_not_d_apart, "heads must lie D apart"),
+            ("cpu_tensors", cpu_tensors, "CUDA")]
+
+
+@pytest.mark.parametrize("case", _refusal_cases(), ids=lambda c: c[0])
+def test_step_kernel_wrapper_refuses(case):
+    _, spoil, match = case
+    q, kn, vn, ck, cv, lin = _step_inputs(3, 5, 4, "fused_qkv_views", torch.float32)
+    args = dict(q_new=q, k_new=kn, v_new=vn, self_k=ck, self_v=cv, lineage=lin)
+    spoil(args)
+    with pytest.raises(ValueError, match=match):
+        lineage_attention_step_cuda(**args, index=torch.tensor(4, dtype=torch.int32),
+                                    beam_width=5)
