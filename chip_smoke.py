@@ -1912,7 +1912,8 @@ def expected_serve_launches(cfg, steps: int, int8: bool, beam: int, ring: int = 
     a ring of ``ring`` ranks runs one flash forward per key block. A hybrid
     CTC/attention search (``decode.ctc_weight`` > 0) runs its prune as the
     pre-beam and one CTC prefix scorer a step; a Conformer encoder one
-    relative-position attention a layer and no flash forward."""
+    relative-position attention a layer and no flash forward; a forced
+    prompt of n tokens n - 1 decode steps without a prune first."""
     from speech_tranformer_pytorch_tpu_torch.kernels import interface
 
     m = cfg.model
@@ -1924,6 +1925,9 @@ def expected_serve_launches(cfg, steps: int, int8: bool, beam: int, ring: int = 
                  "flash_fwd": m.num_encoder_layers * ring})
     if m.encoder == "conformer":   # relative-position attention, no flash forward
         want.update(flash_fwd=0, relpos_attention=m.num_encoder_layers)
+    forced = max(len(cfg.decode.prompt) - 1, 0)   # the prompt's steps (beam.read_prompt)
+    want["lineage_attention"] += m.num_decoder_layers * forced
+    want["cross_attention_decode"] += m.num_decoder_layers * forced
     if int8:   # + the cross K and V projections of init_cache
         want["int8_matmul"] = m.num_decoder_layers * (layer_step * steps + 2)
         want["int8_ffn"] = m.num_decoder_layers * steps
@@ -2038,8 +2042,9 @@ def step_counts(**counts):
 def row_writes_checked(cfg, steps: int, tag: str) -> dict:
     """``interface.row_write_counts()`` since its last reset, which on the
     card must be the lineage kernel's alone, one a decoder layer and step:
-    every step, captured, replayed or eager, writes its self K/V rows inside
-    the write-and-attend kernel, and none with ``index_copy_``."""
+    every step, captured, replayed or eager, a forced prompt's steps
+    included (``steps`` counts them), writes its self K/V rows inside the
+    write-and-attend kernel, and none with ``index_copy_``."""
     from speech_tranformer_pytorch_tpu_torch.kernels import interface
 
     got = interface.row_write_counts()
@@ -2114,6 +2119,8 @@ def _pcm_graph_passes(torch, dev, rec, cfg, batches, decode: dict, eager: dict,
     beam_graph._GRAPHS.pop(rec.model, None)
     steps = sum(r.steps for r, _ in eager.values())
     n = len(batches)
+    prompt = decode.get("prompt")
+    forced = 0 if prompt is None else prompt.offset * n   # the prompt's steps, every call
 
     def run_pass():
         interface.reset_decode_step_counts()
@@ -2141,7 +2148,7 @@ def _pcm_graph_passes(torch, dev, rec, cfg, batches, decode: dict, eager: dict,
                                "score_diff": float((r.scores - e.scores).abs().max())})
         if differ:
             raise AssertionError(f"PCM graph and eager decodes differ: {differ}")
-        row_writes_checked(cfg, steps_run, "graph_beam_decode")
+        row_writes_checked(cfg, steps_run + forced, "graph_beam_decode")
         return walls, interface.decode_step_counts()
 
     first_s, first_counts = run_pass()
@@ -2692,6 +2699,152 @@ def conformer_decode(torch, dev, check_kernel: bool = True):
     del rec
     beam_graph._GRAPHS.clear()
     return rec_kernel, total
+
+
+WHISPER_BUCKETS = (1400, 2000, 3000)   # portbench/mixes/serve.whisper-30s-b16.json
+WHISPER_BATCH = 16
+WHISPER_RATIO = 0.132
+
+
+def whisper_decode(torch, dev):
+    """Whisper large-v3 as the `whisper.serve.long-b16` cell serves it
+    (``portbench/configs/whisper.json``: 32 + 32 layers at d_model 1280,
+    V 51,866, the forced 4-token prompt and the suppression) on a
+    ``Recognizer`` on seeded weights (<|endoftext|>'s row zeroed), one
+    batch of 16 in each bucket of the cell's mix (46/65/98 steps): the
+    log-mel on the card (the DFT kernel) against the plain version on the
+    CPU; the prune's two-launch route at V 51,866 against its plain
+    version; the graph search against the eager one after the same
+    encoding (hypotheses, lengths, steps and scores equal; every call's
+    launches exact: 32 lineage and 32 cross-attention launches a step, the
+    prompt's 3 forced steps included; row writes 32 a step by the kernel,
+    the forced steps included); then the same from the PCM
+    (``_pcm_graph_passes``: prologue replays = calls, the replayed
+    prologue's memory, caches and carry bit-equal to the eager one's).
+    Times the encoder and the replayed calls."""
+    from speech_tranformer_pytorch_tpu_torch.config import config_from_dict
+    from speech_tranformer_pytorch_tpu_torch.data.features import extract_features
+    from speech_tranformer_pytorch_tpu_torch.decoding import beam_graph
+    from speech_tranformer_pytorch_tpu_torch.decoding.beam import eager_beam_search, encode_on
+    from speech_tranformer_pytorch_tpu_torch.kernels import beam_prune, interface
+    from speech_tranformer_pytorch_tpu_torch.models import SpeechTransformer
+    from speech_tranformer_pytorch_tpu_torch.recognize import Recognizer
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench",
+                           "configs", "whisper.json")) as f:
+        cfg = config_from_dict(json.load(f)["config"]).validate()
+    beam = cfg.decode.beam_size
+    batches = _mix_batches(torch, cfg, WHISPER_BUCKETS, WHISPER_BATCH, WHISPER_RATIO)
+    mel_err = {}
+    for audio, lens, _ in batches:     # the log-mel kernel against the plain version
+        card, _ = extract_features(audio, lens, cfg.features.replace(output_dtype="float32"),
+                                   device=dev)
+        plain, _ = extract_features(audio, lens, cfg.features.replace(output_dtype="float32"),
+                                    device="cpu")
+        mel_err[int(audio.shape[1])] = float((card.cpu() - plain).abs().max())
+    if not max(mel_err.values()) <= 1e-3:
+        raise AssertionError(f"Whisper log-mel on the card differs from the plain version: "
+                             f"{mel_err}")
+    logits = torch.randn((WHISPER_BATCH * beam, cfg.model.vocab_size), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(7)) * 3.0
+    alive = torch.randn((WHISPER_BATCH, beam), device=dev)
+    if beam_prune.plan(beam, 2 * beam, cfg.model.vocab_size) != "rows":
+        raise AssertionError("the prune at V 51,866 is expected on its two-launch route")
+    got = beam_prune.candidate_topk_cuda(logits, alive, k2=2 * beam)
+    want = beam_prune.candidate_topk_reference(logits.cpu(), alive.cpu(), k2=2 * beam)
+    if not torch.equal(got[1].cpu(), want[1]):
+        raise AssertionError("the prune's rows route differs from its plain version at "
+                             "V 51,866")
+    gen = torch.Generator().manual_seed(0)
+    model = SpeechTransformer(cfg.model).init_weights(gen)
+    with torch.no_grad():
+        model.decoder.embed.weight[2].zero_()
+    rec = Recognizer(cfg, {k: t.to(dev) for k, t in model.state_dict().items()}, device=dev)
+    del model
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompt = rec.prompt
+    encoded, total = {}, {k: 0 for k in interface.launch_counts()}
+    row_writes = []
+
+    def serve(fn, i):
+        audio, lens, max_len = batches[i]
+        interface.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            feats, flens = extract_features(audio, lens, cfg.features, device=dev)
+            memory, mem_lens = encode_on(rec.model, feats, flens, dev)
+            first, first_lens = encoded.setdefault(i, (memory, mem_lens))
+            r = fn(rec.model, first, first_lens, beam_size=beam, max_len=max_len, alpha=1.0,
+                   prompt=prompt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = interface.launch_counts()
+        want = expected_serve_launches(cfg, r.steps, False, beam)
+        if r.steps <= 0 or counts != want:
+            raise AssertionError(f"{fn.__name__}: launch counts {counts}, expected {want}")
+        for name, c in counts.items():
+            total[name] += c
+        return r, wall
+
+    def run_pass(fn):
+        interface.reset_decode_step_counts()
+        interface.reset_row_write_counts()
+        out = {i: serve(fn, i) for i in range(len(batches))}
+        row_writes.append(row_writes_checked(
+            cfg, sum(r.steps + prompt.offset for r, _ in out.values()), fn.__name__))
+        return out, interface.decode_step_counts()
+
+    first, first_counts = run_pass(beam_graph.graph_beam_search)
+    replayed, replay_counts = run_pass(beam_graph.graph_beam_search)
+    eager, eager_counts = run_pass(eager_beam_search)
+    steps = sum(r.steps for r, _ in eager.values())
+    want_counts = [step_counts(captures=len(batches), eager_steps=steps),
+                   step_counts(replays=steps), step_counts(eager_steps=steps)]
+    if [first_counts, replay_counts, eager_counts] != want_counts:
+        raise AssertionError(f"decode step counts {first_counts}, {replay_counts}, "
+                             f"{eager_counts}; expected {want_counts}")
+    differ = []
+    for i, (e, _) in eager.items():
+        for tag, (g, _) in (("first", first[i]), ("replayed", replayed[i])):
+            if (g.steps != e.steps or not torch.equal(g.tokens, e.tokens)
+                    or not torch.equal(g.lengths, e.lengths)
+                    or not torch.equal(g.scores, e.scores)):
+                differ.append({"pass": tag, "samples": int(batches[i][0].shape[1]),
+                               "steps": [g.steps, e.steps],
+                               "score_diff": float((g.scores - e.scores).abs().max()),
+                               "tokens_equal": bool(torch.equal(g.tokens, e.tokens))})
+    if differ:
+        raise AssertionError(f"Whisper graph and eager decodes differ: {differ}")
+    suppressed = set(cfg.decode.suppress)
+    for r, _ in eager.values():
+        toks = r.tokens.cpu()
+        if (set(toks.flatten().tolist()) & suppressed
+                or set(toks[:, :, 0].flatten().tolist()) & set(cfg.decode.suppress_first)):
+            raise AssertionError("a suppressed id was emitted")
+    arena = beam_graph._GRAPHS[rec.model]
+    arena_bytes = sum(x.numel() * x.element_size() for x in arena._buffers.values())
+    del arena
+    pcm = _pcm_graph_passes(torch, dev, rec, cfg, batches,
+                            dict(beam_size=beam, alpha=1.0, prompt=prompt), eager, False)
+    encoder_ms = {}     # the encoder alone at each bucket's batch, features excluded
+    with torch.no_grad():
+        for audio, lens, _ in batches:
+            feats, flens = extract_features(audio, lens, cfg.features, device=dev)
+            encoder_ms[int(audio.shape[1])] = device_ms(
+                torch, lambda: rec.model.encode(feats, flens), reps=2, rounds=3)
+    emit({"whisper_decode": {
+        "preset": "whisper_large_v3", "steps": steps, "mel_max_abs_err": mel_err,
+        "encoder_ms": encoder_ms, "decode_step_counts": want_counts,
+        "row_writes": row_writes, "pcm": pcm, "arena_bytes": arena_bytes,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "finite": all(bool(torch.isfinite(r.scores).all()) for r, _ in eager.values()),
+        "shapes": [{"samples": int(batches[i][0].shape[1]), "max_len": batches[i][2],
+                    "steps": eager[i][0].steps, "eager_s": eager[i][1],
+                    "first_s": first[i][1], "replayed_s": replayed[i][1]}
+                   for i in range(len(batches))]}})
+    del rec
+    beam_graph._GRAPHS.clear()
+    return total
 
 
 def card_vs_cpu(torch, dev, params, audio, lens, int8: bool = False):
@@ -3951,7 +4104,8 @@ CHECKS = ("check_fbank", "check_beam_prune", "check_lineage", "check_cross_atten
           "check_relpos_attention",
           "check_flash", "check_ring_blocks", "check_adam", "check_int8_matmul",
           "check_int8_ffn")
-PHASES = CHECKS + ("graph_decode", "ctc_decode", "conformer_decode", "main_path", "export_path", "card_vs_cpu", "int8_path",
+PHASES = CHECKS + ("graph_decode", "ctc_decode", "conformer_decode", "whisper_decode",
+                   "main_path", "export_path", "card_vs_cpu", "int8_path",
                    "int8_card_vs_cpu", "train_path", "large_train_path",
                    "train_card_vs_cpu", "overfit_anchor", "manifest_path", "pipeline_path",
                    "drive_recipe", "parallel_path")
@@ -4001,7 +4155,7 @@ def main() -> int:
         graph_decode(torch, dev)
         emit({"phase_s": {"graph_decode": time.perf_counter() - t0}})
     counts = {"serve": {}, "export": {}, "serve_int8": {}, "ctc": {}, "conformer": {},
-              "train": {}, "large": {},
+              "whisper": {}, "train": {}, "large": {},
               "large_master": {},
               "large_trainer": {}, "librispeech": {}, "manifest": {}, "pipeline": {},
               "recipe": {}, "parallel": {}}
@@ -4017,6 +4171,10 @@ def main() -> int:
         if rec is not None:
             recs.append(rec)
         emit({"phase_s": {"conformer_decode": time.perf_counter() - t0}})
+    if "whisper_decode" in phases:
+        t0 = time.perf_counter()
+        counts["whisper"] = whisper_decode(torch, dev)
+        emit({"phase_s": {"whisper_decode": time.perf_counter() - t0}})
     for path, int8 in (("serve", False), ("serve_int8", True)):
         name = "int8_path" if int8 else "main_path"
         if name in phases:

@@ -16,9 +16,13 @@ head of the hybrid CTC/attention model (``model.ctc_head``), the CTC share
 of the training loss (``train.ctc_weight``, ESPnet's ``mtlalpha``) and of
 the beam search's scores (``decode.ctc_weight``), and the encoder's kind
 (``model.encoder``: the Speech-Transformer's, or ESPnet's Conformer with
-its depthwise convolution's kernel ``model.conv_kernel``). ``jax_dict()`` is
-``to_dict()`` without them where they hold their defaults, and the hashes
-are taken over it, so a preset's hashes stay the JAX package's.
+its depthwise convolution's kernel ``model.conv_kernel``), and what
+OpenAI's Whisper needs (``SERVING_ONLY``: its log-mel front end, the Conv1d
+stem, its position tables, no embedding scale, GELU, LayerNorm's epsilon,
+a forced prompt and suppressed ids), which only the
+single-device beam search serves. ``jax_dict()`` is ``to_dict()`` without
+them where they hold their defaults, and the hashes are taken over it, so
+a preset's hashes stay the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import Any, Tuple
+from typing import Any, List, Tuple
 
 
 def _asdict(obj: Any) -> Any:
@@ -61,6 +65,7 @@ class FeatureConfig(_Replace):
     use_pallas: bool = True        # JAX package only; the port dispatches by device
     output_dtype: str = "float32"  # feature dtype handed to the model; the cast
                                    # happens after CMVN, whose statistics stay f32
+    kind: str = "kaldi"            # port only: kaldi | whisper (data/features.py)
 
     @property
     def frame_length(self) -> int:
@@ -115,6 +120,12 @@ class ModelConfig(_Replace):
     ctc_head: bool = False         # port only: a CTC head (Linear d_model -> V) on the encoder
     encoder: str = "transformer"   # port only: transformer | conformer (models/conformer.py)
     conv_kernel: int = 31          # port only: the Conformer's depthwise convolution kernel
+    stem: str = "conv2d"           # port only: conv2d (Conv2dSubsampling) | conv1d_gelu (Whisper's)
+    encoder_positions: str = "sinusoidal"   # port only: sinusoidal | whisper ([sin | cos])
+    decoder_positions: str = "sinusoidal"   # port only: sinusoidal | learned
+    embed_scale: bool = True       # port only: the decoder's embedding times sqrt(d_model)
+    activation: str = "relu"       # port only: relu | gelu (exact), the Transformer FFNs'
+    layer_norm_eps: float = 1e-6   # port only: the Transformer encoder's and decoder's
 
     @property
     def head_dim(self) -> int:
@@ -176,6 +187,9 @@ class DecodeConfig(_Replace):
     int8_weights: bool = False
     int8_kv_cache: bool = False
     ctc_weight: float = 0.0            # port only: CTC prefix scores' share (model.ctc_head)
+    prompt: Tuple[int, ...] = ()       # port only: forced start tokens; () = <sos> alone
+    suppress: Tuple[int, ...] = ()     # port only: ids never emitted
+    suppress_first: Tuple[int, ...] = ()   # port only: ids not emitted as the first token
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,6 +305,7 @@ class ExperimentConfig:
             if m.remat or not m.normalize_before:
                 errs.append("model.encoder='conformer' is the pre-LN block without "
                             "remat (set model.remat=False, model.normalize_before=True)")
+        errs += _serving_only_errors(self)
         if m.attention_impl == "ring" and m.attention_dropout_rate > 0.0:
             errs.append("attention_impl='ring' does not support attention "
                         "dropout (set model.attention_dropout_rate=0.0)")
@@ -302,10 +317,61 @@ class ExperimentConfig:
         return self
 
 
-# Fields the JAX package does not have, with their defaults.
-PORT_ONLY = {"model": {"ctc_head": False, "encoder": "transformer", "conv_kernel": 31},
+def _serving_only_errors(cfg: ExperimentConfig) -> List[str]:
+    """The checks of the ``SERVING_ONLY`` fields."""
+    f, m, dec = cfg.features, cfg.model, cfg.decode
+    errs = [f"{name} {value!r} not in {allowed}" for name, value, allowed in (
+        ("features.kind", f.kind, ("kaldi", "whisper")),
+        ("model.stem", m.stem, ("conv2d", "conv1d_gelu")),
+        ("model.encoder_positions", m.encoder_positions, ("sinusoidal", "whisper")),
+        ("model.decoder_positions", m.decoder_positions, ("sinusoidal", "learned")),
+        ("model.activation", m.activation, ("relu", "gelu"))) if value not in allowed]
+    if f.kind == "whisper" and f.fft_length != f.frame_length:
+        errs.append("features.kind='whisper' needs fft_length == frame_length (Whisper's "
+                    "400-point window and DFT)")
+    ids = {"decode.prompt": dec.prompt, "decode.suppress": dec.suppress,
+           "decode.suppress_first": dec.suppress_first}
+    errs += [f"{name} {list(v)} holds an id outside the vocabulary of {m.vocab_size}"
+             for name, v in ids.items() if any(not 0 <= t < m.vocab_size for t in v)]
+    only = serving_only_fields(cfg)
+    if only:
+        clash = [what for what, on in (
+            ("model.encoder='conformer'", m.encoder == "conformer"),
+            ("model.ctc_head", m.ctc_head), ("attention_impl='ring'", m.attention_impl == "ring"),
+            ("decode.int8_weights", dec.int8_weights), ("decode.int8_kv_cache", dec.int8_kv_cache),
+            ("model.remat", m.remat), ("post-LN (normalize_before=False)", not m.normalize_before))
+            if on]
+        if clash:
+            errs.append(f"{only} are served by the single-device pre-LN beam search alone; "
+                        f"{clash} has no path with them")
+    return errs
+
+
+# Fields the JAX package does not have, with their defaults (a tuple field's
+# as its ``to_dict()`` list).
+PORT_ONLY = {"features": {"kind": "kaldi"},
+             "model": {"ctc_head": False, "encoder": "transformer", "conv_kernel": 31,
+                       "stem": "conv2d", "encoder_positions": "sinusoidal",
+                       "decoder_positions": "sinusoidal", "embed_scale": True,
+                       "activation": "relu", "layer_norm_eps": 1e-6},
              "train": {"ctc_weight": 0.0},
-             "decode": {"ctc_weight": 0.0}}
+             "decode": {"ctc_weight": 0.0, "prompt": [], "suppress": [],
+                        "suppress_first": []}}
+
+# The port-only fields that only the single-device beam search serves
+# (Whisper's): training, a mesh, int8 serving, export and greedy search
+# refuse a configuration that sets one away from its default.
+SERVING_ONLY = (("features", "kind"), ("model", "stem"), ("model", "encoder_positions"),
+                ("model", "decoder_positions"), ("model", "embed_scale"),
+                ("model", "activation"), ("model", "layer_norm_eps"), ("decode", "prompt"),
+                ("decode", "suppress"), ("decode", "suppress_first"))
+
+
+def serving_only_fields(cfg: ExperimentConfig) -> List[str]:
+    """The ``SERVING_ONLY`` fields of ``cfg`` away from their defaults."""
+    d = cfg.to_dict()
+    return [f"{section}.{name}" for section, name in SERVING_ONLY
+            if d[section][name] != PORT_ONLY[section][name]]
 
 
 def drop_port_only(d: dict) -> dict:
@@ -355,7 +421,8 @@ def apply_overrides(cfg: ExperimentConfig, overrides: dict[str, Any]) -> Experim
 
 
 # ---------------------------------------------------------------------------
-# Presets — the same five as the JAX package, and the port's own Conformer.
+# Presets — the same five as the JAX package, and the port's own Conformer
+# and Whisper.
 # ---------------------------------------------------------------------------
 
 def tiny_config() -> ExperimentConfig:
@@ -434,6 +501,50 @@ def librispeech_conformer_config() -> ExperimentConfig:
         decode=cfg.decode.replace(ctc_weight=0.3))
 
 
+# Whisper's special ids as the port places them (the port keeps <pad>, <sos>
+# and <eos> at 0, 1 and 2): <|startoflm|> is 0, <|startoftranscript|> 1 and
+# <|endoftext|> 2, and the tokens v3 puts there ('!', '"', '#') sit at v3's
+# ids of those three; every other id is v3's.
+WHISPER_IDS = {"sot_lm": 0, "sot": 1, "eot": 2, "blank": 220, "en": 50259,
+               "translate": 50359, "transcribe": 50360, "sot_prev": 50362,
+               "no_speech": 50363, "notimestamps": 50364}
+
+
+def whisper_large_v3_config() -> ExperimentConfig:
+    """OpenAI's Whisper large-v3 (Radford et al., 2022; ``openai/whisper``
+    ``model.py``, ``audio.py``, ``decoding.py``; the model card's
+    ``config.json``): 32 + 32 pre-LN layers at d_model 1280, 20 heads, FFN
+    5120 with GELU, LayerNorm epsilon 1e-5 (Whisper's keys have no bias;
+    the port's key biases, which move no attention, load as zeros); a
+    128-bin log-mel of 30-s windows, a Conv1d stem, [sin | cos] encoder positions
+    and learned decoder positions (448), no embedding scale, a tied
+    vocabulary of 51,866. Decoding starts after the forced prompt
+    <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|> and
+    suppresses Whisper's special ids (``SuppressTokens``; <|endoftext|> and
+    " " at the first token, ``SuppressBlank``); beam 5 with the GNMT
+    penalty at alpha 1 (Whisper's ``length_penalty=1.0``). A port-only
+    preset: the JAX package has none of it."""
+    ids = WHISPER_IDS
+    return ExperimentConfig(
+        name="whisper_large_v3",
+        features=FeatureConfig(num_mel_bins=128, fft_length=400, low_freq=0.0,
+                               preemphasis=0.0, window="hann", cmvn=False,
+                               output_dtype="bfloat16", kind="whisper"),
+        model=ModelConfig(
+            vocab_size=51866, d_model=1280, num_heads=20, d_ff=5120,
+            num_encoder_layers=32, num_decoder_layers=32, dropout_rate=0.0,
+            input_dim=128, max_source_positions=1500, max_target_positions=448,
+            stem="conv1d_gelu", encoder_positions="whisper", decoder_positions="learned",
+            embed_scale=False, activation="gelu", layer_norm_eps=1e-5),
+        data=DataConfig(max_target_len=224),
+        decode=DecodeConfig(
+            beam_size=5, max_decode_len=224, length_penalty=1.0,
+            prompt=(ids["sot"], ids["en"], ids["transcribe"], ids["notimestamps"]),
+            suppress=tuple(ids[n] for n in ("sot_lm", "sot", "translate", "transcribe",
+                                            "sot_prev", "no_speech")),
+            suppress_first=(ids["eot"], ids["blank"])))
+
+
 def sharded_config() -> ExperimentConfig:
     """d_model=2048 with tensor parallelism over 4 ranks and ring attention
     in the encoder: the port trains and decodes it on a mesh
@@ -464,6 +575,7 @@ PRESETS = {
 # The port's own presets, which the JAX package has no counterpart of.
 PORT_PRESETS = {
     "librispeech_conformer": librispeech_conformer_config,
+    "whisper_large_v3": whisper_large_v3_config,
 }
 
 

@@ -31,6 +31,19 @@ and the <sos> state are computed once a call (``ctc_prepare``). Both parts
 of a score only fall, so the early stop stays exact. Greedy search, export,
 a mesh and int8 serving have no CTC scorer and refuse λ > 0.
 
+With a ``Prompt`` (``decode.prompt``, ``decode.suppress`` and
+``decode.suppress_first``: Whisper's forced start and ``SuppressTokens`` /
+``SuppressBlank``) the decoder first reads the forced tokens: all but the
+last are fed to every lane as ordinary decode steps at cache positions
+0 .. n - 2 (``read_prompt``), each lane writing its own rows, whose
+logits go unused; the last is every lane's first input, as <sos> is
+without a prompt, and the search's steps run from cache position n - 1.
+Each step adds a row of -1e9 at the suppressed ids to the logits before
+the prune (the first step's row also at ``suppress_first``), so the
+prune's log-softmax leaves them out of its sum as Whisper's filters do. Hypotheses, lengths and the
+penalty count sampled tokens alone. A prompt has no CTC, greedy, export
+or ``use_lineage=False`` path, and those refuse it.
+
 On a card, with the lineage table, a model without a mesh and nothing
 being exported, ``beam_search`` replays each step as a CUDA graph
 (``decoding/beam_graph.py``); everywhere else it runs
@@ -41,7 +54,7 @@ give the same results.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -82,6 +95,57 @@ def _gather_beams(x: torch.Tensor, src_beam: torch.Tensor) -> torch.Tensor:
 
 
 _SELF = ("self_k", "self_v")
+
+
+@dataclasses.dataclass(frozen=True)
+class Prompt:
+    """A forced start and the ids a search never emits (module docstring):
+    ``tokens`` the decoder reads before the first sampled token,
+    ``suppress`` banned at every step, ``suppress_first`` at the first."""
+    tokens: Tuple[int, ...] = (SOS,)
+    suppress: Tuple[int, ...] = ()
+    suppress_first: Tuple[int, ...] = ()
+
+    @classmethod
+    def of(cls, decode) -> Optional["Prompt"]:
+        """The prompt of a ``DecodeConfig``; None where it sets none."""
+        if not (decode.prompt or decode.suppress or decode.suppress_first):
+            return None
+        return cls(tuple(decode.prompt) or (SOS,), tuple(decode.suppress),
+                   tuple(decode.suppress_first))
+
+    @property
+    def offset(self) -> int:
+        """The cache position of the search's first step: the tokens
+        ``read_prompt`` feeds."""
+        return len(self.tokens) - 1
+
+    def ban_rows(self, vocab: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(every step's, the first step's) additive rows [V] f32: -1e9 at
+        the suppressed ids, 0 elsewhere."""
+        rows = torch.zeros((2, vocab), device=device)
+        rows[:, list(self.suppress)] = NEG_INF
+        rows[1, list(self.suppress_first)] = NEG_INF
+        return rows[0], rows[1]
+
+
+def read_prompt(model: SpeechTransformer, prompt: Optional[Prompt], cache, mem_lens,
+                lineage: torch.Tensor) -> None:
+    """Feed a prompt's tokens but the last through ``model.decode_step`` at
+    cache positions 0 .. n - 2, each to every lane, which writes its own
+    self K/V rows through ``lineage`` (``initial_carry``'s identity table);
+    their logits go unused. Nothing without a prompt or with a one-token
+    one. Ids and positions are made on the device, so a CUDA graph
+    captures it."""
+    if prompt is None or not prompt.offset:
+        return
+    b, k = lineage.shape[:2]
+    dev = lineage.device
+    with named_scope("st.decode.prompt"):
+        index = torch.arange(prompt.offset, dtype=torch.int32, device=dev)
+        for j, t in enumerate(prompt.tokens[:-1]):
+            model.decode_step(torch.full((b * k,), t, dtype=torch.int32, device=dev),
+                              index[j], cache, mem_lens, k, lineage)
 
 
 def split_cache(cache):
@@ -192,17 +256,19 @@ def ctc_carry(psi: torch.Tensor, states: torch.Tensor, sel: torch.Tensor):
 
 
 def initial_carry(b: int, k: int, max_len: int, device, own, use_lineage: bool,
-                  ctc_state: Optional[torch.Tensor] = None) -> dict:
+                  ctc_state: Optional[torch.Tensor] = None,
+                  prompt: Optional[Prompt] = None) -> dict:
     """The search's state before step 0, holding the self-attention K/V
-    ``own``: <sos> for every beam, with only beam 0 live (all beams would
-    be identical), empty pools, and the identity lineage table; with
-    ``ctc_state`` ([B, 2, T'], ``ctc_prepare``'s) every beam's CTC state
-    and ψ = 0."""
+    ``own``: <sos> (a prompt's last token) for every beam, with only beam
+    0 live (all beams would be identical), empty pools, and the identity
+    lineage table (over a prompt's positions too); with ``ctc_state``
+    ([B, 2, T'], ``ctc_prepare``'s) every beam's CTC state and ψ = 0."""
     i32 = dict(dtype=torch.int32, device=device)
+    first, off = (SOS, 0) if prompt is None else (prompt.tokens[-1], prompt.offset)
     alive_scores = torch.full((b, k), NEG_INF, device=device)
     alive_scores[:, 0].fill_(0.0)   # made on the device: a CUDA graph can capture it
     carry = dict(
-        cur_tokens=torch.full((b, k), SOS, **i32),
+        cur_tokens=torch.full((b, k), first, **i32),
         alive_tokens=torch.full((b, k, max_len), PAD, **i32),
         alive_scores=alive_scores,
         fin_tokens=torch.full((b, k, max_len), PAD, **i32),
@@ -211,7 +277,7 @@ def initial_carry(b: int, k: int, max_len: int, device, own, use_lineage: bool,
     if use_lineage:
         # lineage[b, k, j]: the cache lane holding beam k's step-j key/value.
         carry["lineage"] = torch.arange(k, **i32)[None, :, None].expand(
-            b, k, max_len).clone()
+            b, k, max_len + off).clone()
     if ctc_state is not None:
         carry["ctc_state"] = ctc_state.repeat_interleave(k, 0)
         carry["ctc_psi"] = torch.zeros((b, k), device=device)
@@ -220,17 +286,25 @@ def initial_carry(b: int, k: int, max_len: int, device, own, use_lineage: bool,
 
 def beam_step(model: SpeechTransformer, const, mem_lens: torch.Tensor, *, b: int, k: int,
               max_len: int, alpha: float, use_lineage: bool, device,
-              ctc: Optional[CTCPrefix] = None):
+              ctc: Optional[CTCPrefix] = None, prompt: Optional[Prompt] = None):
     """Beam search's step: ``step(carry, i)`` runs step ``i`` (a 0-d int32
-    tensor on ``device``) from ``carry`` (``initial_carry``'s keys) and
+    tensor on ``device``: the cache position, ``prompt.offset`` at the
+    first step) from ``carry`` (``initial_carry``'s keys) and
     returns the next carry: the decoder step over the cache held
     as ``split_cache`` parts (``const``, and the carry's own self K/V, which
     the step writes in place), then the prune and the beam bookkeeping;
     with ``ctc``, the pre-beam, CTC prefix scoring and the bookkeeping over
-    the K·P candidates (module docstring)."""
+    the K·P candidates; with ``prompt``, the suppression before the prune
+    (module docstring)."""
     i32 = dict(dtype=torch.int32, device=device)
-    identity = torch.arange(k, **i32)[None, :, None].expand(b, k, max_len)
-    positions = torch.arange(max_len, device=device)[None, None, :]
+    off = 0 if prompt is None else prompt.offset
+    identity = torch.arange(k, **i32)[None, :, None].expand(b, k, max_len + off)
+    positions = torch.arange(max_len, device=device)[None, None, :]   # a token's step
+    cache_positions = positions
+    if off:
+        positions = positions + off
+        cache_positions = torch.arange(max_len + off, device=device)[None, None, :]
+    bans = None if prompt is None else prompt.ban_rows(model.cfg.vocab_size, device)
     if ctc is not None:
         n_pre = pre_beam_size(k)
         no_alive = torch.zeros((b * k, 1), device=device)   # the pre-beam's row scores
@@ -239,6 +313,8 @@ def beam_step(model: SpeechTransformer, const, mem_lens: torch.Tensor, *, b: int
         """(scores [B, 2K], parent beams, tokens, and with ``ctc`` every
         candidate's ψ [B, K·P], states and flat index [B, 2K])."""
         v = logits.shape[-1]
+        if bans is not None:
+            logits = logits + torch.where(i == off, bans[1], bans[0])
         if ctc is None:
             top_scores, top_idx = interface.beam_candidate_topk(
                 logits, c["alive_scores"], k2=2 * k, pad_id=PAD, sos_id=SOS)
@@ -268,7 +344,7 @@ def beam_step(model: SpeechTransformer, const, mem_lens: torch.Tensor, *, b: int
         is_eos = top_tok == EOS
 
         # Finished pool: the existing K plus the new <eos> candidates.
-        new_fin_lens = torch.zeros((b, 2 * k), **i32) + i
+        new_fin_lens = torch.zeros((b, 2 * k), **i32) + (i - off if off else i)
         penalized = top_scores / length_penalty(new_fin_lens, alpha)
         cand_fin = torch.where(is_eos, penalized, torch.full_like(penalized, NEG_INF))
         fin_scores, fin_sel = topk_stable(torch.cat([c["fin_scores"], cand_fin], 1), k)
@@ -294,8 +370,8 @@ def beam_step(model: SpeechTransformer, const, mem_lens: torch.Tensor, *, b: int
         if use_lineage:
             # Compose the beam permutation into the lineage table: columns
             # <= i follow the chosen parents, later columns stay identity.
-            out["lineage"] = torch.where(positions <= i, _take(c["lineage"], src_beam),
-                                         identity)
+            out["lineage"] = torch.where(cache_positions <= i,
+                                         _take(c["lineage"], src_beam), identity)
         else:   # gather the self cache (cross K/V are beam-invariant)
             own = {n: {key: _gather_beams(t, src_beam) for key, t in layer.items()}
                    for n, layer in own.items()}
@@ -343,6 +419,22 @@ def finalize(c, steps: int, alpha: float) -> BeamResult:
                       scores=final_scores, steps=steps)
 
 
+def check_prompt_search(prompt: Optional[Prompt], ctc_weight: float, use_lineage: bool,
+                        model: SpeechTransformer) -> None:
+    """Raise where a search with a prompt has no path: CTC prefix scores,
+    the beam-gathered cache (``use_lineage=False``), export, a mesh."""
+    if prompt is None:
+        return
+    why = [what for what, on in (
+        ("decode.ctc_weight > 0", ctc_weight > 0.0), ("use_lineage=False", not use_lineage),
+        ("export", torch.compiler.is_exporting()), ("a mesh", model.decoder.mesh is not None))
+        if on]
+    if why:
+        raise ValueError(f"a forced prompt or suppressed ids (decode.prompt, decode.suppress, "
+                         f"decode.suppress_first) are served by the single-device beam search "
+                         f"with the lineage table alone: {why} has no path for them")
+
+
 def check_ctc_search(model: SpeechTransformer, int8: bool) -> None:
     """Raise where a hybrid CTC/attention search (``ctc_weight`` > 0) has
     no path: a model without a CTC head, a mesh, export, int8 serving."""
@@ -385,14 +477,17 @@ def beam_search(
     early_stop: bool = True,
     use_lineage: bool = True,
     ctc_weight: float = 0.0,
+    prompt: Optional[Prompt] = None,
 ) -> BeamResult:
     """Beam search over encoded ``memory``: replayed as CUDA graphs where
     ``replays_graphs`` (``beam_graph.graph_beam_search``), else
-    ``eager_beam_search``; hybrid CTC/attention with ``ctc_weight`` > 0."""
+    ``eager_beam_search``; hybrid CTC/attention with ``ctc_weight`` > 0;
+    from a forced ``prompt``."""
     if ctc_weight > 0.0:
         check_ctc_search(model, int8_kv)
+    check_prompt_search(prompt, ctc_weight, use_lineage, model)
     kw = dict(beam_size=beam_size, max_len=max_len, alpha=alpha, int8_kv=int8_kv,
-              early_stop=early_stop, ctc_weight=ctc_weight)
+              early_stop=early_stop, ctc_weight=ctc_weight, prompt=prompt)
     if replays_graphs(model, memory.device, max_len, use_lineage):
         from .beam_graph import graph_beam_search
 
@@ -413,20 +508,27 @@ def eager_beam_search(
     early_stop: bool = True,
     use_lineage: bool = True,
     ctc_weight: float = 0.0,
+    prompt: Optional[Prompt] = None,
 ) -> BeamResult:
     """Beam search issuing every step's kernels from Python
     (``decode_loop``)."""
+    check_prompt_search(prompt, ctc_weight, use_lineage, model)
     b, k = memory.shape[0], beam_size
     dev = memory.device
+    off = 0 if prompt is None else prompt.offset
     with named_scope("st.decode.init_cache"):
-        const, own = split_cache(model.init_cache(memory, max_len, k, int8_kv))
+        cache = model.init_cache(memory, max_len + off, k, int8_kv)
+        const, own = split_cache(cache)
     ctc, sos_state = None, None
     if ctc_weight > 0.0:
         logp, lens, sos_state = ctc_prepare(model, memory, mem_lens)
         ctc = CTCPrefix(logp, lens, float(ctc_weight))
-    carry = initial_carry(b, k, max_len, dev, own, use_lineage, sos_state)
+    carry = initial_carry(b, k, max_len, dev, own, use_lineage, sos_state, prompt)
+    if prompt is not None:
+        read_prompt(model, prompt, cache, mem_lens, carry["lineage"])
+    del cache
     step = beam_step(model, const, mem_lens, b=b, k=k, max_len=max_len, alpha=alpha,
-                     use_lineage=use_lineage, device=dev, ctc=ctc)
+                     use_lineage=use_lineage, device=dev, ctc=ctc, prompt=prompt)
     done = None
     if early_stop:
         max_lp = stop_bound(max_len, alpha, dev)
@@ -434,8 +536,8 @@ def eager_beam_search(
         def done(c) -> bool:
             return not bool(keep_going(c, max_lp))
 
-    c, steps = decode_loop(step, carry, torch.arange(max_len, dtype=torch.int32, device=dev),
-                           stop=done)
+    c, steps = decode_loop(step, carry, torch.arange(off, max_len + off, dtype=torch.int32,
+                                                     device=dev), stop=done)
     with named_scope("st.decode.finalize"):
         return finalize(c, steps, alpha)
 
@@ -454,6 +556,7 @@ def beam_decode(
     early_stop: bool = True,
     use_lineage: bool = True,
     ctc_weight: float = 0.0,
+    prompt: Optional[Prompt] = None,
 ) -> BeamResult:
     """Encode + beam search on ``device`` (CUDA unless the caller asks for
     the CPU); the model must already live there."""
@@ -461,7 +564,7 @@ def beam_decode(
     return beam_search(model, memory, mem_lens, beam_size=beam_size,
                        max_len=max_len, alpha=alpha, int8_kv=int8_kv,
                        early_stop=early_stop, use_lineage=use_lineage,
-                       ctc_weight=ctc_weight)
+                       ctc_weight=ctc_weight, prompt=prompt)
 
 
 def encode_on(model: SpeechTransformer, feats, frame_lens, device: DeviceLike):

@@ -20,7 +20,8 @@ A served call's prologue is its work before the first step: the features
 (``data/features.extract_features``), the encoder (``beam.encode_on``),
 the decoder's caches (``Decoder.init_cache``), with a CTC weight the CTC
 head's log-probs (``beam.ctc_prepare``), the initial state
-(``beam.initial_carry``) and the first early-stop test: some 180 to 260
+(``beam.initial_carry``), with a forced prompt its rows (``beam.read_prompt``)
+and the first early-stop test: some 180 to 260
 launches a call for a few milliseconds of device work. ``graph_beam_decode``
 copies the call's PCM and sample lengths into static views of the arena
 (``pcm``, ``pcm.lens``, in the caller's dtypes) and runs the prologue on
@@ -32,7 +33,9 @@ tensor of the search's state and caches and for the call's inputs, each
 sized for the largest shape seen so far. A step shape (batch, beam,
 max_len, encoder frames, dtype, int8 cross cache, alpha, CTC weight) takes
 views of them, so one arena serves every shape, and every capture shares
-one graph memory pool. A hybrid CTC/attention search (``ctc_weight`` > 0)
+one graph memory pool. A forced prompt (``beam.Prompt``) is part of both
+shapes: its tokens are fed as decode steps in the prologue, and the
+search's steps start at the prompt's cache position. A hybrid CTC/attention search (``ctc_weight`` > 0)
 keeps its CTC log-probs, valid lengths and the hypotheses' CTC states and
 ψ there too, and the captured step holds the CTC prefix scorer. A call
 writes its initial state and caches into its views (what the eager search
@@ -84,9 +87,9 @@ from ..data.features import extract_features
 from ..kernels import interface
 from ..models import SpeechTransformer
 from ..utils.profiling import named_scope
-from .beam import (BeamResult, CTCPrefix, beam_step, check_ctc_search, ctc_prepare,
-                   decode_loop, encode_on, finalize, initial_carry, keep_going, split_cache,
-                   stop_bound)
+from .beam import (BeamResult, CTCPrefix, Prompt, beam_step, check_ctc_search,
+                   check_prompt_search, ctc_prepare, decode_loop, encode_on, finalize,
+                   initial_carry, keep_going, read_prompt, split_cache, stop_bound)
 
 # name -> (shape, strides, dtype) of each tensor a step shape keeps in the arena
 Spec = Dict[str, Tuple[Tuple[int, ...], Tuple[int, ...], torch.dtype]]
@@ -135,6 +138,7 @@ class _Call:
     alpha: float
     int8_kv: bool
     ctc_weight: float
+    prompt: Optional[Prompt]
 
 
 class StepGraphs:
@@ -189,7 +193,7 @@ class StepGraphs:
 
     def _build(self, model: SpeechTransformer, key: tuple) -> _Step:
         """The views of step shape ``key`` and the step that advances them."""
-        b, k, max_len, _, _, _, alpha, ctc_weight = key
+        b, k, max_len, _, _, _, alpha, ctc_weight, prompt = key
         views = {name: self._take(name, *layout) for name, layout in self._specs[key].items()}
         ctc = (CTCPrefix(views["ctc.logp"], views["ctc.lens"], ctc_weight)
                if ctc_weight > 0.0 else None)
@@ -207,7 +211,7 @@ class StepGraphs:
         # A proxy: the steps live as long as the model, and must not keep it.
         step = beam_step(weakref.proxy(model), const, views["mem_lens"], b=b, k=k,
                          max_len=max_len, alpha=alpha, use_lineage=True,
-                         device=self.device, ctc=ctc)
+                         device=self.device, ctc=ctc, prompt=prompt)
 
         def advance() -> None:
             nxt = step(carry, index)
@@ -262,14 +266,17 @@ class StepGraphs:
 
     def _start(self, model: SpeechTransformer, memory: torch.Tensor, mem_lens: torch.Tensor,
                *, beam_size: int, max_len: int, alpha: float, int8_kv: bool,
-               early_stop: bool, ctc_weight: float, entry: Optional[_Step] = None) -> _Step:
+               early_stop: bool, ctc_weight: float, prompt: Optional[Prompt],
+               entry: Optional[_Step] = None) -> _Step:
         """Write the search's initial state and caches (what the eager
-        search starts from) and, with ``early_stop``, the test before the
+        search starts from: a prompt's rows included) and, with
+        ``early_stop``, the test before the
         first step into the arena: into ``entry``'s views when given (a
         prologue being captured), else into the views of ``memory``'s step
         shape, taken here (growing the arena if need be), whose step is
         built if it has none. Returns that step."""
         b, k = memory.shape[0], beam_size
+        off = 0 if prompt is None else prompt.offset
         spec: Spec = {}
 
         def store(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -279,24 +286,28 @@ class StepGraphs:
             return self._take(name, *spec[name]).copy_(t)
 
         with named_scope("st.decode.init_cache"):
-            _, own = split_cache(model.init_cache(
-                memory, max_len, k, int8_kv, store=lambda name, t: store("cache." + name, t)))
+            cache = model.init_cache(memory, max_len + off, k, int8_kv,
+                                     store=lambda name, t: store("cache." + name, t))
+            _, own = split_cache(cache)
             sos_state = None
             if ctc_weight > 0.0:
                 logp, lens, sos_state = ctc_prepare(model, memory, mem_lens)
                 store("ctc.logp", logp)
                 store("ctc.lens", lens)
                 del logp
-            for name, t in initial_carry(b, k, max_len, self.device, own, True,
-                                         sos_state).items():
+            carry = initial_carry(b, k, max_len, self.device, own, True, sos_state, prompt)
+            for name, t in carry.items():
                 if name != "cache":
                     store("carry." + name, t)
+            read_prompt(model, prompt, cache, mem_lens, carry["lineage"])
+            del cache, carry
             # int32, as the cross-attention kernel reads it: no cast in the step
             store("mem_lens", mem_lens.to(torch.int32))
-            store("index", torch.zeros((), dtype=torch.int32, device=self.device))
+            index = torch.zeros((), dtype=torch.int32, device=self.device)
+            store("index", index.fill_(off) if off else index)
             if entry is None:
                 key = (b, k, max_len, memory.shape[1], memory.dtype, int8_kv, float(alpha),
-                       float(ctc_weight))
+                       float(ctc_weight), prompt)
                 spec["go"] = ((), (), torch.bool)
                 self._specs[key] = spec
                 entry = self._entry(model, key)
@@ -306,12 +317,13 @@ class StepGraphs:
 
     def search(self, model: SpeechTransformer, memory: torch.Tensor,
                mem_lens: torch.Tensor, *, beam_size: int, max_len: int, alpha: float,
-               int8_kv: bool, early_stop: bool, ctc_weight: float = 0.0) -> BeamResult:
+               int8_kv: bool, early_stop: bool, ctc_weight: float = 0.0,
+               prompt: Optional[Prompt] = None) -> BeamResult:
         """The beam search over encoded ``memory`` on the arena."""
         self._check_params(model)
         entry = self._start(model, memory, mem_lens, beam_size=beam_size, max_len=max_len,
                             alpha=alpha, int8_kv=int8_kv, early_stop=early_stop,
-                            ctc_weight=ctc_weight)
+                            ctc_weight=ctc_weight, prompt=prompt)
         return self._search(model, entry, early_stop)
 
     def _inputs(self, call: _Call) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -329,11 +341,13 @@ class StepGraphs:
         del feats, frame_lens
         return self._start(model, memory, mem_lens, beam_size=call.beam_size,
                            max_len=call.max_len, alpha=call.alpha, int8_kv=call.int8_kv,
-                           early_stop=True, ctc_weight=call.ctc_weight, entry=entry)
+                           early_stop=True, ctc_weight=call.ctc_weight, prompt=call.prompt,
+                           entry=entry)
 
     def prologue(self, model: SpeechTransformer, audio, sample_lens,
                  features: FeatureConfig, *, beam_size: int, max_len: int, alpha: float,
-                 int8_kv: bool, ctc_weight: float = 0.0) -> _Step:
+                 int8_kv: bool, ctc_weight: float = 0.0,
+                 prompt: Optional[Prompt] = None) -> _Step:
         """A call's prologue from its padded PCM [B, S] and sample lengths
         [B] (host or device tensors or arrays): both copied into the arena,
         then its graph replayed, or, at a call shape's first call on the
@@ -342,7 +356,7 @@ class StepGraphs:
         self._check_params(model)
         audio, sample_lens = torch.as_tensor(audio), torch.as_tensor(sample_lens)
         call = _Call(tuple(audio.shape), audio.dtype, sample_lens.dtype, features,
-                     beam_size, max_len, float(alpha), bool(int8_kv), float(ctc_weight))
+                     beam_size, max_len, float(alpha), bool(int8_kv), float(ctc_weight), prompt)
         pcm, lens = self._inputs(call)   # a larger call grows them: no graph is left
         pcm.copy_(audio)
         lens.copy_(sample_lens)
@@ -359,18 +373,18 @@ class StepGraphs:
 
     def decode(self, model: SpeechTransformer, audio, sample_lens, features: FeatureConfig,
                *, beam_size: int, max_len: int, alpha: float, int8_kv: bool,
-               ctc_weight: float = 0.0) -> BeamResult:
+               ctc_weight: float = 0.0, prompt: Optional[Prompt] = None) -> BeamResult:
         """``prologue``, then the beam search on the arena, with the early
         stop."""
         entry = self.prologue(model, audio, sample_lens, features, beam_size=beam_size,
                               max_len=max_len, alpha=alpha, int8_kv=int8_kv,
-                              ctc_weight=ctc_weight)
+                              ctc_weight=ctc_weight, prompt=prompt)
         return self._search(model, entry, True)
 
     def _search(self, model: SpeechTransformer, entry: _Step, early_stop: bool) -> BeamResult:
         """The steps from the initial state in ``entry``'s views, then the
         result; on a card, every shape seen without a graph is captured."""
-        _, _, max_len, _, _, _, alpha, _ = entry.key
+        _, _, max_len, _, _, _, alpha, _, _ = entry.key
         # A shape's first call on this arena runs its step eagerly.
         run, kind = ((entry.advance, "eager_steps") if entry.graph is None
                      else (entry.graph.replay, "replays"))
@@ -420,20 +434,21 @@ def _arena(model: SpeechTransformer, device: torch.device) -> StepGraphs:
 def graph_beam_search(model: SpeechTransformer, memory: torch.Tensor,
                       mem_lens: torch.Tensor, *, beam_size: int, max_len: int,
                       alpha: float = 1.0, int8_kv: bool = False,
-                      early_stop: bool = True, ctc_weight: float = 0.0) -> BeamResult:
+                      early_stop: bool = True, ctc_weight: float = 0.0,
+                      prompt: Optional[Prompt] = None) -> BeamResult:
     """``beam.eager_beam_search`` with the lineage table, on the model's
     static arena (``StepGraphs``): on a card each step is a CUDA graph
     replay after a shape's first call; on the CPU every step runs eagerly."""
     return _arena(model, memory.device).search(
         model, memory, mem_lens, beam_size=beam_size, max_len=max_len, alpha=alpha,
-        int8_kv=int8_kv, early_stop=early_stop, ctc_weight=ctc_weight)
+        int8_kv=int8_kv, early_stop=early_stop, ctc_weight=ctc_weight, prompt=prompt)
 
 
 @torch.no_grad()
 def graph_beam_decode(model: SpeechTransformer, audio, sample_lens,
                       features: FeatureConfig, *, beam_size: int, max_len: int,
                       alpha: float = 1.0, int8_kv: bool = False,
-                      ctc_weight: float = 0.0) -> BeamResult:
+                      ctc_weight: float = 0.0, prompt: Optional[Prompt] = None) -> BeamResult:
     """``data.features.extract_features`` then ``beam.beam_decode`` with
     the lineage table and the early stop, from padded PCM [B, S] and sample
     lengths [B], on the
@@ -442,6 +457,7 @@ def graph_beam_decode(model: SpeechTransformer, audio, sample_lens,
     run eagerly."""
     if ctc_weight > 0.0:
         check_ctc_search(model, int8_kv)
+    check_prompt_search(prompt, ctc_weight, True, model)
     return _arena(model, next(model.parameters()).device).decode(
         model, audio, sample_lens, features, beam_size=beam_size, max_len=max_len,
-        alpha=alpha, int8_kv=int8_kv, ctc_weight=ctc_weight)
+        alpha=alpha, int8_kv=int8_kv, ctc_weight=ctc_weight, prompt=prompt)

@@ -8,6 +8,11 @@ holds their wrapper, which picks the kernel by the config's shape
 (``kernel_for``), the host tables the FFT kernel reads (``fft_tables``),
 the effective matrices of the DFT kernel, and the plain rfft version of
 the same function, which the CPU path and the card-side checks use.
+
+For Whisper's log-mel (``features.kind='whisper'``, ``data/features``) the
+same kernels compute the mel power of each frame: no DC removal or
+pre-emphasis, the periodic window, the Slaney filters and no log (Whisper
+takes log10 afterwards, with its per-utterance clamp).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import numpy as np
 import torch
 
 from ..config import FeatureConfig
-from ..data.features import LOG_EPS, make_mel_matrix, make_window
+from ..data.features import LOG_EPS, feature_mel_matrix, feature_window
 from . import _build
 
 
@@ -30,27 +35,27 @@ def _effective_matrices(cfg: FeatureConfig) -> Tuple[np.ndarray, np.ndarray, np.
     DC removal, pre-emphasis and the window are linear in the frame
     samples, so they fold with the real DFT into two matrices:
     ``C_eff = D_dc @ P_pre @ diag(window) @ C_dft`` (and ``S_eff`` with the
-    sine basis). Unlike the TPU copy, the bin axis is not padded."""
+    sine basis); Whisper's frames have neither DC removal nor
+    pre-emphasis. Unlike the TPU copy, the bin axis is not padded."""
     L = cfg.frame_length
     nfft = cfg.fft_length
     n_bins = nfft // 2 + 1
-    d_dc = np.eye(L) - np.full((L, L), 1.0 / L)
+    kaldi = cfg.kind == "kaldi"
+    d_dc = np.eye(L) - np.full((L, L), 1.0 / L) if kaldi else np.eye(L)
     p = np.eye(L)
-    if cfg.preemphasis > 0:
+    if cfg.preemphasis > 0 and kaldi:
         k = cfg.preemphasis
         for j in range(1, L):
             p[j - 1, j] = -k
         p[0, 0] = 1.0 - k
-    w = np.diag(make_window(cfg.window, L).astype(np.float64))
+    w = np.diag(feature_window(cfg).astype(np.float64))
     n = np.arange(L)[:, None]
     kk = np.arange(n_bins)[None, :]
     ang = 2.0 * np.pi * n * kk / nfft
     pre = d_dc @ p @ w
     c_eff = (pre @ np.cos(ang)).astype(np.float32)
     s_eff = (pre @ -np.sin(ang)).astype(np.float32)
-    mel = make_mel_matrix(cfg.num_mel_bins, nfft, cfg.sample_rate,
-                          cfg.low_freq, cfg.high_freq)
-    return c_eff, s_eff, mel
+    return c_eff, s_eff, feature_mel_matrix(cfg)
 
 
 # Power-of-two FFT lengths the FFT kernel takes (64 P points, P = 1..16).
@@ -58,12 +63,20 @@ FFT_LENGTHS = (64, 128, 256, 512, 1024)
 
 
 def kernel_for(cfg: FeatureConfig) -> str:
-    """"fft" for a power-of-two ``fft_length`` the FFT kernel takes (and a
-    frame no longer than it), else "dft": the DFT kernel over the folded
-    matrices, which takes any length. Chosen by shape, never on failure."""
-    if cfg.fft_length in FFT_LENGTHS and cfg.frame_length <= cfg.fft_length:
+    """"fft" for a Kaldi fbank of a power-of-two ``fft_length`` the FFT
+    kernel takes (and a frame no longer than it), else "dft": the DFT
+    kernel over the folded matrices, which takes any length and Whisper's
+    frames. Chosen by shape, never on failure."""
+    if (cfg.kind == "kaldi" and cfg.fft_length in FFT_LENGTHS
+            and cfg.frame_length <= cfg.fft_length):
         return "fft"
     return "dft"
+
+
+def natural_log(cfg: FeatureConfig) -> bool:
+    """Whether the kernel takes the log (Kaldi's, floored at float32 eps);
+    Whisper's log10 and clamp come after it (``data/features``)."""
+    return cfg.use_log and cfg.kind == "kaldi"
 
 
 def sparse_mel(mel: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -126,11 +139,9 @@ def fft_tables(cfg: FeatureConfig) -> Tuple[np.ndarray, np.ndarray, np.ndarray, 
     ``make_window``'s, zero past the frame (the FFT's zero padding); the
     twiddles are ``lane_twiddles``."""
     nfft = cfg.fft_length
-    mel = make_mel_matrix(cfg.num_mel_bins, nfft, cfg.sample_rate,
-                          cfg.low_freq, cfg.high_freq)
-    index, weights = sparse_mel(mel)
+    index, weights = sparse_mel(feature_mel_matrix(cfg))
     window = np.zeros(nfft, np.float32)
-    window[:cfg.frame_length] = make_window(cfg.window, cfg.frame_length)
+    window[:cfg.frame_length] = feature_window(cfg)
     return window, lane_twiddles(nfft), index, weights
 
 
@@ -157,7 +168,7 @@ def _window_and_mel_on(cfg: FeatureConfig, device: torch.device):
     key = ("plain", cfg, str(device))
     if key not in _device_matrices:
         _device_matrices[key] = (
-            torch.from_numpy(make_window(cfg.window, cfg.frame_length)).to(device),
+            torch.from_numpy(feature_window(cfg)).to(device),
             torch.from_numpy(_effective_matrices(cfg)[2]).to(device))
     return _device_matrices[key]
 
@@ -166,18 +177,21 @@ def log_mel_reference(waveform: torch.Tensor, cfg: FeatureConfig,
                       n_frames: int) -> torch.Tensor:
     """Plain version: [B, S] f32 -> [B, n_frames, M] by framing, DC
     removal, pre-emphasis, window, ``torch.fft.rfft``, power, mel, log —
-    the rfft form of the JAX package's ``_log_mel_impl``."""
+    the rfft form of the JAX package's ``_log_mel_impl``; for Whisper's
+    frames framing, window, rfft, power and mel alone."""
     x = waveform.float()
+    kaldi = cfg.kind == "kaldi"
     frames = x.unfold(-1, cfg.frame_length, cfg.frame_shift)[..., :n_frames, :]
-    frames = frames - frames.mean(dim=-1, keepdim=True)
-    if cfg.preemphasis > 0.0:
+    if kaldi:
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+    if cfg.preemphasis > 0.0 and kaldi:
         prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
         frames = frames - cfg.preemphasis * prev
     window, mel_mat = _window_and_mel_on(cfg, x.device)
     spec = torch.fft.rfft(frames * window, n=cfg.fft_length, dim=-1)
     power = torch.square(spec.real) + torch.square(spec.imag)
     mel = power @ mel_mat
-    if cfg.use_log:
+    if natural_log(cfg):
         mel = torch.log(torch.clamp(mel, min=LOG_EPS))
     return mel
 
@@ -204,14 +218,14 @@ def log_mel_cuda(waveform: torch.Tensor, cfg: FeatureConfig,
             waveform.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
             mel_index.data_ptr(), mel_w.data_ptr(), out.data_ptr(), b, s, n_frames,
             cfg.frame_length, cfg.frame_shift, cfg.fft_length, cfg.num_mel_bins,
-            mel_w.numel(), max(cfg.preemphasis, 0.0), int(cfg.use_log), LOG_EPS,
+            mel_w.numel(), max(cfg.preemphasis, 0.0), int(natural_log(cfg)), LOG_EPS,
             stream), "st_stft_mel")
     else:
         c_eff, s_eff, mel = _matrices_on(cfg, waveform.device)
         _build.check(lib.st_stft_mel_dft(
             waveform.data_ptr(), c_eff.data_ptr(), s_eff.data_ptr(),
             mel.data_ptr(), out.data_ptr(), b, s, n_frames, cfg.frame_length,
-            cfg.frame_shift, mel.shape[0], cfg.num_mel_bins, int(cfg.use_log),
+            cfg.frame_shift, mel.shape[0], cfg.num_mel_bins, int(natural_log(cfg)),
             LOG_EPS, stream), "st_stft_mel_dft")
     log_mel_cuda.launches += 1
     return out

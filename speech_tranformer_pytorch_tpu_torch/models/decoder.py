@@ -3,6 +3,11 @@
 cross-attention, feed-forward} → final LayerNorm → logits, with the output
 projection tied to the embedding by default.
 
+Whisper's decoder (``whisper/model.py`` ``TextDecoder``) is this one with
+port-only fields: learned positions (``model.decoder_positions``), no
+embedding scale, GELU and ``model.layer_norm_eps`` (Whisper's keys have
+no bias: the port's key biases load as zeros).
+
 Two modes: the teacher-forced ``forward`` and the one-token ``decode_step``
 over a KV cache. Cache layout per layer, for a step batch of B·K rows:
   self_k/self_v   : [B·K, max_len, H, D], written at ``index`` in place
@@ -47,7 +52,7 @@ from ..ops.dropout import dropout
 from ..ops.remat import remat_module
 from ..parallel.tp import (column_linear, copy_to_model, gather_from_model,
                            local_slice, reduce_from_model)
-from .modules import (FeedForward, Int8Embedding, Int8Linear, LayerNorm,
+from .modules import (ACTIVATIONS, FeedForward, Int8Embedding, Int8Linear, LayerNorm,
                       MultiHeadAttention, PositionalEncoding, dot_product_attention)
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
@@ -65,10 +70,11 @@ class DecoderLayer(nn.Module):
         self.cross_attn = MultiHeadAttention(cfg.d_model, cfg.num_heads,
                                              dropout_rate=cfg.attention_dropout_rate,
                                              remat=cfg.attention_remat, mesh=mesh)
-        self.ffn = FeedForward(cfg.d_model, cfg.d_ff, cfg.dropout_rate, mesh)
-        self.ln1 = LayerNorm(cfg.d_model)
-        self.ln2 = LayerNorm(cfg.d_model)
-        self.ln3 = LayerNorm(cfg.d_model)
+        self.ffn = FeedForward(cfg.d_model, cfg.d_ff, cfg.dropout_rate, mesh,
+                               activation=ACTIVATIONS[cfg.activation])
+        self.ln1 = LayerNorm(cfg.d_model, cfg.layer_norm_eps)
+        self.ln2 = LayerNorm(cfg.d_model, cfg.layer_norm_eps)
+        self.ln3 = LayerNorm(cfg.d_model, cfg.layer_norm_eps)
 
     def forward(self, x, memory, tgt_lens, mem_lens, *, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -183,12 +189,13 @@ class Decoder(nn.Module):
         self.mesh = mesh
         tp = 1 if mesh is None else mesh.tp
         self.d_model = cfg.d_model
+        self.embed_scale = cfg.embed_scale
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model // tp)
         self.pos_enc = PositionalEncoding(cfg.d_model, cfg.max_target_positions,
-                                          cfg.dropout_rate)
+                                          cfg.dropout_rate, cfg.decoder_positions)
         self.layers = nn.ModuleList(DecoderLayer(cfg, mesh)
                                     for _ in range(cfg.num_decoder_layers))
-        self.final_norm = LayerNorm(cfg.d_model)
+        self.final_norm = LayerNorm(cfg.d_model, cfg.layer_norm_eps)
         self.out_proj = (None if cfg.share_embedding else
                          nn.Linear(cfg.d_model, cfg.vocab_size // tp, bias=False))
         self.remat = cfg.remat
@@ -237,7 +244,11 @@ class Decoder(nn.Module):
         return gather_from_model(column_linear(self.out_proj, x, mesh), mesh).float()
 
     def _embed_scaled(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The tokens' embedding rows, times sqrt(d_model) unless
+        ``model.embed_scale`` is off (Whisper's)."""
         emb = gather_from_model(self.embed(tokens), self.mesh)
+        if not self.embed_scale:
+            return emb
         scale = torch.full((), self.d_model ** 0.5, dtype=emb.dtype, device=emb.device)
         return emb * scale
 

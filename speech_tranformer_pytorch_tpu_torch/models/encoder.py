@@ -13,7 +13,16 @@ are always built one by one; ``model.scan_layers`` only tells
 tensor-parallel, and ``model.attention_impl='ring'`` sends self-attention
 through ring attention over the model axis (JAX ``encoder.py:44-55``);
 without one the ring's function is computed by the ordinary flash route,
-as JAX's ``train.build_model`` substitutes it."""
+as JAX's ``train.build_model`` substitutes it.
+
+Whisper's encoder (``whisper/model.py`` ``AudioEncoder``) is this one with
+port-only fields: ``model.stem`` 'conv1d_gelu' (``Conv1dStem``),
+``model.encoder_positions`` 'whisper' ([sin | cos] sinusoids),
+``model.activation`` 'gelu' and ``model.layer_norm_eps``; its final
+LayerNorm is Whisper's ``ln_post``. Whisper's keys have no bias; the
+port's key biases load as zeros (a key bias moves no attention). It
+attends over every frame of its 30-s window: its front end
+(``data/features``) gives every utterance the window's whole length."""
 
 from __future__ import annotations
 
@@ -26,8 +35,8 @@ from ..config import ModelConfig
 from ..ops import masks as mask_ops
 from ..ops.dropout import dropout
 from ..ops.remat import remat_module
-from .modules import (Conv2dSubsampling, FeedForward, LayerNorm,
-                      MultiHeadAttention, PositionalEncoding, subsampled_lengths)
+from .modules import (ACTIVATIONS, Conv1dStem, Conv2dSubsampling, FeedForward, LayerNorm,
+                      MultiHeadAttention, PositionalEncoding, stem_lengths)
 
 
 class EncoderLayer(nn.Module):
@@ -39,9 +48,10 @@ class EncoderLayer(nn.Module):
             cfg.d_model, cfg.num_heads, fused_qkv=cfg.fused_qkv,
             dropout_rate=cfg.attention_dropout_rate, remat=cfg.attention_remat,
             mesh=mesh, ring=mesh is not None and cfg.attention_impl == "ring")
-        self.ffn = FeedForward(cfg.d_model, cfg.d_ff, cfg.dropout_rate, mesh)
-        self.ln1 = LayerNorm(cfg.d_model)
-        self.ln2 = LayerNorm(cfg.d_model)
+        self.ffn = FeedForward(cfg.d_model, cfg.d_ff, cfg.dropout_rate, mesh,
+                               activation=ACTIVATIONS[cfg.activation])
+        self.ln1 = LayerNorm(cfg.d_model, cfg.layer_norm_eps)
+        self.ln2 = LayerNorm(cfg.d_model, cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, *,
                 deterministic: bool = True,
@@ -61,13 +71,15 @@ class EncoderLayer(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
-        self.subsample = Conv2dSubsampling(cfg.input_dim, cfg.d_model,
-                                           cfg.subsample_channels)
+        self.stem = cfg.stem
+        self.subsample = (Conv1dStem(cfg.input_dim, cfg.d_model) if cfg.stem == "conv1d_gelu"
+                          else Conv2dSubsampling(cfg.input_dim, cfg.d_model,
+                                                 cfg.subsample_channels))
         self.pos_enc = PositionalEncoding(cfg.d_model, cfg.max_source_positions,
-                                          cfg.dropout_rate)
+                                          cfg.dropout_rate, cfg.encoder_positions)
         self.layers = nn.ModuleList(EncoderLayer(cfg, mesh)
                                     for _ in range(cfg.num_encoder_layers))
-        self.final_norm = LayerNorm(cfg.d_model)
+        self.final_norm = LayerNorm(cfg.d_model, cfg.layer_norm_eps)
         self.remat = cfg.remat
 
     def forward(self, feats: torch.Tensor, frame_lens: torch.Tensor, *,
@@ -77,7 +89,7 @@ class Encoder(nn.Module):
         """Returns (memory [B, T', d_model], memory_lens [B])."""
         kw = dict(deterministic=deterministic, generator=generator)
         x = self.pos_enc(self.subsample(feats), **kw)
-        out_lens = subsampled_lengths(frame_lens)
+        out_lens = stem_lengths(frame_lens, self.stem)
         remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
             x = (remat_module(layer, x, out_lens, **kw) if remat

@@ -50,14 +50,32 @@ def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
     return pe.astype(np.float32)
 
 
+def whisper_sinusoids(max_len: int, d_model: int) -> np.ndarray:
+    """[max_len, d_model] Whisper's encoder table (``whisper/model.py``
+    ``sinusoids``): sines then cosines, concatenated, of timescales
+    exp(-log(10^4) i / (d/2 - 1)), i < d/2."""
+    inc = math.log(10000.0) / (d_model // 2 - 1)
+    scaled = (np.arange(max_len, dtype=np.float64)[:, None]
+              * np.exp(-inc * np.arange(d_model // 2, dtype=np.float64))[None, :])
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], 1).astype(np.float32)
+
+
 class PositionalEncoding(nn.Module):
-    def __init__(self, d_model: int, max_len: int, dropout_rate: float = 0.0):
+    """Adds position rows: a fixed table, ``kind`` "sinusoidal" (Vaswani's)
+    or "whisper" (``whisper_sinusoids``), a non-persistent buffer; or
+    "learned", a parameter (Whisper's decoder). Either is ``pe``."""
+
+    def __init__(self, d_model: int, max_len: int, dropout_rate: float = 0.0,
+                 kind: str = "sinusoidal"):
         super().__init__()
         self.max_len = max_len
         self.dropout_rate = dropout_rate
-        self.register_buffer(
-            "pe", torch.from_numpy(sinusoidal_position_encoding(max_len, d_model)),
-            persistent=False)
+        if kind == "learned":
+            self.pe = nn.Parameter(torch.zeros(max_len, d_model))
+        else:
+            table = (whisper_sinusoids if kind == "whisper"
+                     else sinusoidal_position_encoding)(max_len, d_model)
+            self.register_buffer("pe", torch.from_numpy(table), persistent=False)
 
     def forward(self, x: torch.Tensor, offset: int = 0, *,
                 deterministic: bool = True,
@@ -82,6 +100,31 @@ def conv_output_length(length: torch.Tensor, kernel: int = 3,
 def subsampled_lengths(frame_lens: torch.Tensor) -> torch.Tensor:
     """Length transform of the 2-layer 3×3/s2 subsampler."""
     return conv_output_length(conv_output_length(frame_lens))
+
+
+def stem_lengths(frame_lens: torch.Tensor, stem: str) -> torch.Tensor:
+    """Encoder frames of ``frame_lens`` feature frames through ``stem``
+    (``model.stem``): the conv2d subsampler's, or Whisper's Conv1d stem,
+    whose stride-2 convolution pads by one: (L - 1) // 2 + 1."""
+    if stem == "conv1d_gelu":
+        return torch.div(frame_lens + 1, 2, rounding_mode="floor")
+    return subsampled_lengths(frame_lens)
+
+
+class Conv1dStem(nn.Module):
+    """Whisper's audio stem (``AudioEncoder``): [B, T, n_mels] ->
+    [B, T // 2, d_model] by Conv1d(k 3, pad 1) → GELU → Conv1d(k 3,
+    stride 2, pad 1) → GELU over time."""
+
+    def __init__(self, input_dim: int, d_model: int):
+        super().__init__()
+        self.conv1 = nn.Conv1d(input_dim, d_model, 3, padding=1)
+        self.conv2 = nn.Conv1d(d_model, d_model, 3, stride=2, padding=1)
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        x = feats.to(self.conv1.weight.dtype).transpose(1, 2)    # [B,F,T]
+        x = F.gelu(self.conv2(F.gelu(self.conv1(x))))
+        return x.transpose(1, 2)
 
 
 class Conv2dSubsampling(nn.Module):
@@ -358,7 +401,10 @@ class FeedForward(nn.Module):
 
 class LayerNorm(nn.LayerNorm):
     """LayerNorm with the JAX package's epsilon (flax's 1e-6, not torch's
-    1e-5)."""
+    1e-5) unless given one (``model.layer_norm_eps``)."""
 
-    def __init__(self, d_model: int):
-        super().__init__(d_model, eps=1e-6)
+    def __init__(self, d_model: int, eps: float = 1e-6):
+        super().__init__(d_model, eps=eps)
+
+
+ACTIVATIONS = {"relu": F.relu, "gelu": F.gelu}   # ``model.activation``

@@ -26,6 +26,7 @@ from ..ops import masks as mask_ops
 from .conformer import ConformerEncoder
 from .decoder import Cache, Decoder
 from .encoder import Encoder
+from .modules import PositionalEncoding
 
 CTC_BLANK = 0        # the pad id, as ESPnet's blank is id 0
 
@@ -105,9 +106,9 @@ class SpeechTransformer(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "SpeechTransformer":
         """Seeded random weights: normal(0, 1/fan_in) kernels (LeCun), zero
-        biases, unit LayerNorm scales, normal(0, 1/d) embeddings; a
-        Conformer's BatchNorm at its defaults and its position biases drawn
-        (``ConformerEncoder.init_extra``). Draws on ``generator``'s device;
+        biases, unit LayerNorm scales, normal(0, 1/d) embeddings and learned
+        position rows; a Conformer's BatchNorm at its defaults and its
+        position biases drawn (``ConformerEncoder.init_extra``). Draws on ``generator``'s device;
         build on the CPU to share weights across devices."""
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
@@ -118,6 +119,8 @@ class SpeechTransformer(nn.Module):
             elif isinstance(m, nn.Embedding):
                 m.weight.normal_(0.0, 1.0 / math.sqrt(m.embedding_dim),
                                  generator=generator)
+            elif isinstance(m, PositionalEncoding) and isinstance(m.pe, nn.Parameter):
+                m.pe.normal_(0.0, 1.0 / math.sqrt(m.pe.shape[1]), generator=generator)
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()

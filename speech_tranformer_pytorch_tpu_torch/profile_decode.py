@@ -1,7 +1,7 @@
 """Where the time of one served batch goes, on a CUDA card.
 
     python -m speech_tranformer_pytorch_tpu_torch.profile_decode [--int8]
-        [--preset librispeech_conformer] [--eager-prologue]
+        [--preset librispeech_conformer|whisper_large_v3] [--eager-prologue]
 
 Runs the smoke main path (``smoke_batch``: ``base`` preset, or
 ``--preset``'s, seeded random weights, 8 int16 utterances of 4-6 s, beam 5,
@@ -9,8 +9,9 @@ max_len 100; with ``--int8`` int8 weights and an int8 cross-K/V cache)
 once to warm up, once timed, then once under ``torch.profiler``. With
 ``--eager-prologue`` the profiled call finds no graph of its shape, so its
 prologue (features, encoder, caches) runs eagerly and its spans show:
-``st.features``, ``st.encode`` and, for a Conformer, ``st.encode.relpos``
-and ``st.encode.conv``. Prints one JSON line:
+``st.features``, ``st.encode``, for a Conformer ``st.encode.relpos``
+and ``st.encode.conv``, and for Whisper the prompt's forced steps,
+``st.decode.prompt``. Prints one JSON line:
 the wall time, the device's busy time (union of kernel intervals) and idle
 share, kernel launches per decode step, the kernels that take the most
 device time, for each of the program's spans (``st.*``,
@@ -20,7 +21,8 @@ decode steps were issued (``kernels/interface.decode_step_counts``: graph
 replays, captures, eager steps, and the call prologues replayed, captured
 and run eagerly), and how its self K/V rows were written
 (``interface.row_write_counts``: inside the lineage kernel, or by
-``index_copy_``; one a decoder layer and step). ``chip_smoke.py`` serves
+``index_copy_``; one a decoder layer and step, a prompt's forced steps
+included). ``chip_smoke.py`` serves
 the same batch through ``smoke_batch``, so the trace describes the path
 it measures.
 """

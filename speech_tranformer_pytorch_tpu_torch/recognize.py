@@ -20,13 +20,13 @@ from typing import Dict, List, Optional, Union
 import torch
 import torch.distributed as dist
 
-from .config import ExperimentConfig
+from .config import ExperimentConfig, serving_only_fields
 from .data.features import extract_features
 from .data.pipeline import (BucketedBatcher, ManifestDataset, _frames_for_samples)
 from .data.tokenizer import EOS, load_tokenizer
 from .decoding import (BeamResult, GreedyResult, beam_decode, best_hypotheses,
                        greedy_decode, tokens_to_lists)
-from .decoding.beam import check_ctc_search, replays_graphs
+from .decoding.beam import Prompt, check_ctc_search, replays_graphs
 from .decoding.beam_graph import graph_beam_decode
 from .device import DeviceLike, resolve_device
 from .models import SpeechTransformer
@@ -61,7 +61,12 @@ class Recognizer:
 
         ``decode.ctc_weight`` > 0 (a model with ``model.ctc_head``): the
         beam search is the hybrid CTC/attention one (``decoding/beam``);
-        it has no mesh, int8 or greedy path, and those raise."""
+        it has no mesh, int8 or greedy path, and those raise.
+
+        Whisper's port-only fields (``config.SERVING_ONLY``: its front
+        end, stem, positions, a forced ``decode.prompt`` and suppressed
+        ids) are served by the single-device beam search alone: a mesh or
+        int8 serving refuses them here, greedy search at its call."""
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.mesh = mesh
@@ -69,6 +74,11 @@ class Recognizer:
         dt = getattr(torch, cfg.model.dtype)
         self.int8_kv = bool(cfg.decode.int8_kv_cache)
         self.ctc_weight = float(cfg.decode.ctc_weight)
+        self.prompt = Prompt.of(cfg.decode)
+        only = serving_only_fields(cfg)
+        if only and (mesh is not None or cfg.decode.int8_weights or self.int8_kv):
+            raise ValueError(f"{only} are served by the single-device beam search alone: "
+                             f"a mesh and int8 serving have no path for them")
         if mesh is not None:
             if cfg.decode.int8_weights or self.int8_kv:
                 raise ValueError("decode.int8_weights / decode.int8_kv_cache are "
@@ -115,7 +125,7 @@ class Recognizer:
             result = graph_beam_decode(self.model, audio_int16, sample_lens,
                                        self.cfg.features, beam_size=beam_size,
                                        max_len=max_len, alpha=alpha, int8_kv=self.int8_kv,
-                                       ctc_weight=self.ctc_weight)
+                                       ctc_weight=self.ctc_weight, prompt=self.prompt)
             self.last_steps = result.steps
             return result
         feats, frame_lens = extract_features(audio_int16, sample_lens,
@@ -130,12 +140,17 @@ class Recognizer:
             if self.ctc_weight > 0.0:
                 raise ValueError("greedy search (beam 1) has no CTC prefix scorer: "
                                  "decode.ctc_weight > 0 needs beam_size > 1")
+            if self.prompt is not None:
+                raise ValueError("greedy search (beam 1) has no forced prompt or "
+                                 "suppression: decode.prompt / decode.suppress need "
+                                 "beam_size > 1")
             result = greedy_decode(self.model, feats, frame_lens, max_len=max_len,
                                    int8_kv=self.int8_kv, device=self.device)
         else:
             result = beam_decode(self.model, feats, frame_lens, beam_size=beam_size,
                                  max_len=max_len, alpha=alpha, int8_kv=self.int8_kv,
-                                 device=self.device, ctc_weight=self.ctc_weight)
+                                 device=self.device, ctc_weight=self.ctc_weight,
+                                 prompt=self.prompt)
         self.last_steps = result.steps
         return result
 

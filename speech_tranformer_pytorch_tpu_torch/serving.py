@@ -103,12 +103,17 @@ def export_recognizer(cfg, params: Dict[str, torch.Tensor], *, batch_size: int,
     (tokens [B,K,max_len] i32, lengths [B,K] i32, scores [B,K] f32)``
     (greedy at ``beam_size == 1``, with K = 1 shapes and zero scores), on
     ``device`` (CUDA unless the caller asks for the CPU)."""
+    from .config import serving_only_fields
     from .device import resolve_device
     from .models import SpeechTransformer
 
     if cfg.model.encoder == "conformer":
         raise ValueError("model.encoder='conformer' cannot be exported: the Conformer is "
                          "served by the Recognizer's graph-replayed beam search only")
+    only = serving_only_fields(cfg)
+    if only:
+        raise ValueError(f"{only} cannot be exported: they are served by the Recognizer's "
+                         f"graph-replayed beam search only")
     if cfg.decode.ctc_weight > 0.0:
         raise ValueError("decode.ctc_weight > 0 cannot be exported: the exported "
                          "decode loop has no CTC prefix scorer")

@@ -31,7 +31,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch.func import functional_call
 
-from .config import ExperimentConfig
+from .config import ExperimentConfig, serving_only_fields
 from .device import DeviceLike, resolve_device
 from .models import SpeechTransformer
 from .ops.dropout import step_generator
@@ -119,6 +119,10 @@ def create_train_state(cfg: ExperimentConfig, *, device: DeviceLike = None,
     (or loaded) on the CPU, then ``parallel/sharding.shard_params`` takes
     its shards, and a given whole ``opt`` is sharded the same way.
     ``train.master_weights`` is single-device only, as in JAX."""
+    only = serving_only_fields(cfg)
+    if only:
+        raise ValueError(f"{only} are served by the beam search alone: the port has no "
+                         f"training path for them (the reference trains none of them)")
     dev = resolve_device(device) if mesh is None else mesh.device
     model = SpeechTransformer(cfg.model)
     if params is None:
